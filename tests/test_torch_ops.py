@@ -1,0 +1,188 @@
+"""``dvd_tpu_torch`` ops, diffusion tables and package plumbing against
+``dvd_tpu`` (CPU, f32).
+
+Covers grids, resize, grid_sample/warp (~1e-6), the schedule tables and
+the DDIM step table for table, the kernel wrappers' CPU dispatch, the
+sm_90a build command, and that the port imports no JAX, flax or PIL.
+"""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import test_torch_common  # noqa: F401  (sets torch to 1 thread)
+from dvd_tpu.diffusion import gaussian as jG
+from dvd_tpu.diffusion.schedule import make_schedule as j_make_schedule
+from dvd_tpu.ops.grid_sample import grid_sample as j_grid_sample
+from dvd_tpu.ops.grid_sample import warp as j_warp
+from dvd_tpu.ops.resize import resize_bilinear as j_resize
+from dvd_tpu.utils.grids import base_grid as j_base_grid
+from dvd_tpu.utils.grids import flow_to_grid as j_flow_to_grid
+from dvd_tpu_torch.diffusion import gaussian as G
+from dvd_tpu_torch.diffusion.schedule import make_schedule
+from dvd_tpu_torch.ops.grid_sample import grid_sample, warp
+from dvd_tpu_torch.ops.kernels import build
+from dvd_tpu_torch.ops.kernels.attention import attention, attention_ref
+from dvd_tpu_torch.ops.kernels.conv3x3 import conv3x3, conv3x3_ref
+from dvd_tpu_torch.ops.kernels.grid_sample import (gather_bilinear,
+                                                   gather_bilinear_ref)
+from dvd_tpu_torch.ops.resize import resize_bilinear
+from dvd_tpu_torch.utils.grids import base_grid, flow_to_grid
+from test_torch_common import nchw, nhwc, t
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+@pytest.mark.parametrize("hw", [(5, 7), (16, 16), (33, 20)])
+def test_base_grid_and_flow_to_grid(hw):
+    h, w = hw
+    np.testing.assert_array_equal(base_grid(h, w).numpy(),
+                                  np.asarray(j_base_grid(h, w)))
+    flow = np.random.RandomState(0).randn(2, h, w, 2).astype(np.float32) * 0.1
+    np.testing.assert_allclose(flow_to_grid(t(flow), 0.987).numpy(),
+                               np.asarray(j_flow_to_grid(jnp.asarray(flow),
+                                                         0.987)),
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("align", [True, False])
+@pytest.mark.parametrize("src,dst", [((9, 7), (20, 31)), ((64, 64), (16, 16)),
+                                     ((18, 18), (64, 64))])
+def test_resize_bilinear(align, src, dst):
+    x = np.random.RandomState(1).rand(2, *src, 3).astype(np.float32)
+    want = np.asarray(j_resize(jnp.asarray(x), dst, align_corners=align))
+    got = nhwc(resize_bilinear(nchw(x), dst, align_corners=align))
+    np.testing.assert_allclose(got, want, atol=1e-6)
+
+
+@pytest.mark.parametrize("padding_mode", ["zeros", "border"])
+def test_grid_sample(padding_mode):
+    rng = np.random.RandomState(2)
+    img = rng.rand(2, 13, 17, 3).astype(np.float32)
+    grid = rng.uniform(-1.3, 1.3, (2, 9, 11, 2)).astype(np.float32)
+    want = np.asarray(j_grid_sample(jnp.asarray(img), jnp.asarray(grid),
+                                    align_corners=True,
+                                    padding_mode=padding_mode))
+    got = nhwc(grid_sample(nchw(img), t(grid), padding_mode=padding_mode))
+    np.testing.assert_allclose(got, want, atol=1e-6)
+
+
+def test_warp_features():
+    """The sampler's time-variant feature re-warp: 256-ch features at the
+    latent size, grid from a flow."""
+    rng = np.random.RandomState(3)
+    feat = rng.randn(2, 16, 16, 256).astype(np.float32)
+    flow = (rng.rand(2, 16, 16, 2).astype(np.float32) - 0.5) * 0.2
+    want = np.asarray(j_warp(jnp.asarray(feat),
+                             j_flow_to_grid(jnp.asarray(flow))))
+    got = nhwc(warp(nchw(feat), flow_to_grid(t(flow))))
+    np.testing.assert_allclose(got, want, atol=1e-5)
+
+
+SCHEDULES = [dict(steps=3, schedule_name="cosine"),
+             dict(steps=1000, schedule_name="linear", respacing="ddim10"),
+             dict(steps=100, schedule_name="cosine", respacing="10,5"),
+             dict(steps=8, schedule_name="cosine", rescale_timesteps=False)]
+
+
+@pytest.mark.parametrize("kw", SCHEDULES)
+def test_schedule_tables(kw):
+    js, ts = j_make_schedule(**kw), make_schedule(**kw)
+    assert js.num_timesteps == ts.num_timesteps
+    for name in ("betas", "alphas_cumprod", "alphas_cumprod_prev",
+                 "sqrt_recip_alphas_cumprod", "sqrt_recipm1_alphas_cumprod",
+                 "posterior_variance", "posterior_log_variance_clipped",
+                 "posterior_mean_coef1", "posterior_mean_coef2",
+                 "fixed_large_variance", "fixed_large_log_variance",
+                 "model_timesteps"):
+        np.testing.assert_array_equal(getattr(ts, name).numpy(),
+                                      np.asarray(getattr(js, name)), err_msg=name)
+
+
+@pytest.mark.parametrize("eta", [0.0, 0.5])
+def test_ddim_step_and_model_t(eta):
+    kw = dict(steps=3, schedule_name="cosine")
+    js, ts = j_make_schedule(**kw), make_schedule(**kw)
+    rng = np.random.RandomState(4)
+    x = rng.randn(3, 4, 4, 2).astype(np.float32)
+    x0 = rng.randn(3, 4, 4, 2).astype(np.float32)
+    noise = rng.randn(3, 4, 4, 2).astype(np.float32)
+    tt = np.array([2, 1, 0])
+    want = jG.ddim_step(js, jnp.asarray(x), jnp.asarray(tt), jnp.asarray(x0),
+                        eta=eta, noise=jnp.asarray(noise))
+    got = G.ddim_step(ts, t(x), torch.from_numpy(tt), t(x0), eta=eta,
+                      noise=t(noise))
+    np.testing.assert_allclose(got.sample.numpy(), np.asarray(want.sample),
+                               rtol=1e-6, atol=1e-6)
+    np.testing.assert_array_equal(
+        G.model_t(ts, torch.from_numpy(tt)).numpy(),
+        np.asarray(jG.model_t(js, jnp.asarray(tt))))
+
+
+KERNEL_CASES = {
+    "attention": (attention, attention_ref,
+                  lambda g: (torch.randn(2, 3, 8, 16, generator=g),
+                             torch.randn(2, 3, 12, 16, generator=g),
+                             torch.randn(2, 3, 12, 16, generator=g), 0.25)),
+    "conv3x3": (conv3x3, conv3x3_ref,
+                lambda g: (torch.randn(1, 5, 9, 7, generator=g),
+                           torch.randn(4, 5, 3, 3, generator=g),
+                           torch.rand(4, generator=g),
+                           torch.randn(4, generator=g), 2, True)),
+    "gather_bilinear": (gather_bilinear, gather_bilinear_ref,
+                        lambda g: (torch.rand(1, 2, 6, 5, generator=g),
+                                   torch.rand(1, 3, 4, generator=g) * 7 - 1,
+                                   torch.rand(1, 3, 4, generator=g) * 8 - 1)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(KERNEL_CASES))
+def test_wrapper_takes_twin_for_cpu_tensors(name):
+    """On CPU tensors each wrapper returns its plain twin's result and does
+    not count a launch; a tensor on any other non-CUDA device is refused."""
+    wrapper, twin, make = KERNEL_CASES[name]
+    args = make(torch.Generator().manual_seed(0))
+    before = wrapper.launches
+    torch.testing.assert_close(wrapper(*args), twin(*args), rtol=0, atol=0)
+    assert wrapper.launches == before
+    meta = tuple(a.to("meta") if torch.is_tensor(a) else a for a in args)
+    with pytest.raises(ValueError):
+        wrapper(*meta)
+
+
+def test_nvcc_command_targets_sm90a(tmp_path):
+    cmd = build.nvcc_command(tmp_path / "lib.so", nvcc="/x/nvcc")
+    assert cmd[0] == "/x/nvcc"
+    assert cmd[1:3] == ["-gencode", "arch=compute_90a,code=sm_90a"]
+    for flag in ("-std=c++17", "-O3", "-shared", "-fPIC", "-v"):
+        assert flag in cmd
+    srcs = [c for c in cmd if c.endswith(".cu")]
+    assert sorted(Path(s).name for s in srcs) == sorted(build.SOURCES)
+    assert all(Path(s).is_file() for s in srcs)
+    assert len(build.source_hash()) == 16
+
+
+def test_port_imports_no_jax_flax_pil():
+    """``import dvd_tpu_torch`` and ``chip_smoke`` (and the modules the
+    serving path uses) load neither JAX, flax nor PIL."""
+    code = (
+        "import sys\n"
+        "import dvd_tpu_torch, chip_smoke\n"
+        "import dvd_tpu_torch.evaluation.pipeline\n"
+        "import dvd_tpu_torch.cli.run_sampling\n"
+        "import dvd_tpu_torch.training.convert\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'PIL'))\n"
+        "assert not bad, bad\n"
+        "print('clean')\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "clean"
