@@ -64,7 +64,7 @@ def dewarp_image(pipe: DewarpPipeline, image: np.ndarray, seed: int,
 
 
 def build_pipeline(cfg: DvDConfig, seed: int,
-                   device: str) -> DewarpPipeline:
+                   device: str = "cuda") -> DewarpPipeline:
     """Pipeline with weights drawn from ``seed`` (on the CPU, so the same
     seed gives the same weights on any device)."""
     return DewarpPipeline.create(

@@ -1,6 +1,7 @@
-"""DDIM step and the model-facing timestep map (port of the serving part
-of ``dvd_tpu/diffusion/gaussian.py``: x0-parameterised prediction, the
-eq. 12 DDIM update, reference ``gaussian_diffusion.py:445-492``)."""
+"""Forward noising, the DDIM step and the model-facing timestep map (port
+of ``dvd_tpu/diffusion/gaussian.py``: ``q_sample``, x0-parameterised
+prediction, the eq. 12 DDIM update, reference
+``gaussian_diffusion.py:445-492``)."""
 
 from __future__ import annotations
 
@@ -9,6 +10,14 @@ from typing import NamedTuple, Optional
 import torch
 
 from dvd_tpu_torch.diffusion.schedule import DiffusionSchedule
+
+
+def q_sample(sched: DiffusionSchedule, x_start: torch.Tensor,
+             t: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+    """Sample from q(x_t | x_0)."""
+    nd = x_start.dim()
+    return sched.gather(sched.sqrt_alphas_cumprod, t, nd) * x_start \
+        + sched.gather(sched.sqrt_one_minus_alphas_cumprod, t, nd) * noise
 
 
 def predict_eps_from_xstart(sched: DiffusionSchedule, x_t: torch.Tensor,

@@ -11,6 +11,9 @@
 
 Flows are (N, S, S, 2) channel-last; features are NCHW.  The feature
 re-warp goes through ``ops.grid_sample.warp`` and so through K3 on a card.
+
+Also the training rollout (``rollout_states_for_training``): the
+reference's per-sample partial DDIM rollout in vectorised form.
 """
 
 from __future__ import annotations
@@ -81,7 +84,9 @@ def ddim_sample_loop(
         t = torch.full((nb,), i, dtype=torch.long, device=dev)
         pred_x0, feat = model_fn(x, G.model_t(sched, t), cond_r,
                                  init_flow=fl, init_feat=ft,
-                                 seed_init_feat=first, remap_timesteps=True)
+                                 seed_init_feat=torch.full((nb,), first,
+                                                           device=dev),
+                                 remap_timesteps=True)
         noise = None
         if eta != 0.0:
             noise = torch.randn(x.shape, generator=generator, device=dev)
@@ -91,3 +96,60 @@ def ddim_sample_loop(
 
     hyp = pred_flow.reshape(n_batch, b, s, s, 2)
     return SampleResult(flow=hyp.mean(dim=0).clamp(-1.0, 1.0), hypotheses=hyp)
+
+
+@torch.no_grad()
+def rollout_states_for_training(
+    model_fn: ModelFn,
+    sched: DiffusionSchedule,
+    cond: Dict[str, torch.Tensor],
+    init_flow: torch.Tensor,
+    init_feat: torch.Tensor,
+    t: torch.Tensor,
+    *,
+    latent_size: int,
+    remap_timesteps: bool = False,
+    noise: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The recurrent (init_flow, init_feat) each sample's timestep would
+    see (reference ``training_losses_time_variant``,
+    gaussian_diffusion.py:921-972), without gradient.
+
+    The whole batch is rolled from T-1 down to 1 once, and after step i
+    the samples with ``t == i - 1`` take the handed-off state: the flow
+    clamped to [-1, 1] and the features re-warped with it.  Samples with
+    ``t == T - 1`` keep the initial state.  The carry inside the rollout
+    stays unclamped.  The model sees rescaled t with no remap unless
+    ``remap_timesteps``.  ``noise`` pins x_T (B, S, S, 2); otherwise it is
+    drawn from ``generator``."""
+    b = init_flow.shape[0]
+    s = latent_size
+    dev = init_flow.device
+    x = noise.to(dev, torch.float32) if noise is not None else \
+        torch.randn((b, s, s, 2), generator=generator, device=dev)
+    ti = t.long()
+    out_flow, out_feat = init_flow, init_feat
+    cur_flow, cur_feat = init_flow, init_feat
+    pred_flow, feat = init_flow, init_feat
+    T = sched.num_timesteps
+    for i in range(T - 1, 0, -1):     # steps T-1 .. 1 (state for t = i-1)
+        first = i == T - 1
+        if not first:
+            cur_flow = pred_flow
+            feat = warp(feat, flow_to_grid(pred_flow))
+            cur_feat = feat
+        t_vec = torch.full((b,), i, dtype=torch.long, device=dev)
+        pred_x0, feat = model_fn(
+            x, G.model_t(sched, t_vec), cond, init_flow=cur_flow,
+            init_feat=cur_feat,
+            seed_init_feat=torch.full((b,), first, device=dev),
+            remap_timesteps=remap_timesteps)
+        step = G.ddim_step(sched, x, t_vec, pred_x0, eta=0.0)
+        x, pred_flow = step.sample, step.pred_xstart
+        handoff = pred_flow.clamp(-1.0, 1.0)
+        sel = (ti == i - 1)
+        out_flow = torch.where(sel[:, None, None, None], handoff, out_flow)
+        out_feat = torch.where(sel[:, None, None, None],
+                               warp(feat, flow_to_grid(handoff)), out_feat)
+    return out_flow, out_feat

@@ -62,8 +62,9 @@ def check_config(cfg: DvDConfig) -> None:
         todo.append(f"separate_cross_attn={m.separate_cross_attn!r}")
     if m.serve_cond_chunk:
         todo.append("serve_cond_chunk > 0")
-    if m.compute_dtype not in DTYPES:
-        todo.append(f"compute_dtype={m.compute_dtype!r}")
+    if m.compute_dtype not in DTYPES or m.param_dtype not in DTYPES:
+        todo.append(f"compute_dtype={m.compute_dtype!r}, "
+                    f"param_dtype={m.param_dtype!r}")
     if todo:
         raise NotImplementedError("not ported yet: " + "; ".join(todo))
 
@@ -82,13 +83,19 @@ class DewarpPipeline:
     dtype: torch.dtype   # compute dtype of every network
 
     @classmethod
-    def create(cls, cfg: DvDConfig, device="cpu",
+    def create(cls, cfg: DvDConfig, device="cuda",
                generator: Optional[torch.Generator] = None,
-               dit: Optional[DiT] = None) -> "DewarpPipeline":
-        """Build the networks for ``cfg``; with a (CPU) ``generator`` their
+               dit: Optional[DiT] = None,
+               train: bool = False) -> "DewarpPipeline":
+        """Build the networks for ``cfg`` on ``device`` (the card unless
+        the caller asks for the CPU); with a (CPU) ``generator`` their
         weights are drawn from it (``seeded_init_``), else they keep
         torch's default init until weights are loaded.  ``dit`` replaces
-        the config's DiT (tests use a narrow one)."""
+        the config's DiT (tests use a narrow one).  With ``train`` the DiT
+        keeps ``model.param_dtype`` parameters that require gradients (the
+        training step computes in ``compute_dtype`` under autocast), and
+        drawn weights start its adaLN and final layers at zero, as the
+        reference's training init; the aux nets stay frozen either way."""
         check_config(cfg)
         m = cfg.model
         device = torch.device(device)
@@ -101,20 +108,22 @@ class DewarpPipeline:
         nets = dict(dit=dit, seg=Seg(m.source_size), line=TextLineUNet(),
                     geotr=GeoTrSegInf(m.source_size))
         if generator is not None:
-            for net in nets.values():
-                seeded_init_(net, generator)
+            for name, net in nets.items():
+                seeded_init_(net, generator, zero_init=train and name == "dit")
         sched = make_schedule(steps=cfg.diffusion.diffusion_steps,
                               schedule_name=cfg.diffusion.noise_schedule,
                               respacing=cfg.diffusion.timestep_respacing,
                               rescale_timesteps=cfg.diffusion.rescale_timesteps,
                               device=device)
-        # frozen (eval, no grad: the kernels are forward-only).  The DiT is
-        # stored in the compute dtype; the aux nets keep f32 weights and
-        # cast them, with BN folded, once per weight set (fold_conv_bn)
+        # frozen (eval, no grad).  For serving the DiT is stored in the
+        # compute dtype; the aux nets keep f32 weights and cast them, with
+        # BN folded, once per weight set (fold_conv_bn)
         dtype = DTYPES[m.compute_dtype]
-        nets["dit"].to(device, dtype)
+        nets["dit"].to(device, DTYPES[m.param_dtype] if train else dtype)
         for net in nets.values():
             net.to(device).eval().requires_grad_(False)
+        if train:
+            nets["dit"].requires_grad_(True)
         return cls(cfg=cfg, sched=sched, device=device, dtype=dtype, **nets)
 
     # ------------------------------------------------------ conditioning

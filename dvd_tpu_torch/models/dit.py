@@ -21,6 +21,12 @@ sampling-time timestep remap (t > 600 -> 2, t > 300 -> 1).
 
 Layout: flows (N, S, S, 2) channel-last (the sampler's and grid_sample's
 grid layout); images and feature maps NCHW; tokens (N, T, D).
+
+Dtypes: the DiT computes in its weights' dtype (serving stores it in the
+compute dtype), or, under ``torch.autocast``, in the autocast dtype with
+f32 weights (training keeps f32 parameters and computes in bf16, as
+flax's ``dtype``/``param_dtype``).  ``train=True`` runs the SATRN decoder
+in train mode (batch-statistics BN, dropout from ``generator``).
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ from dvd_tpu_torch.models.layers import (CrossAttention, Mlp, PatchEmbed,
                                          get_2d_sincos_pos_embed, layer_norm,
                                          modulate)
 from dvd_tpu_torch.ops.resize import resize_bilinear
+from dvd_tpu_torch.utils.dtypes import at_least_f32
 
 # (name, Cin, Cout, maxpool after) for latent 64/32/16 (reference
 # cross_model.py:18-95; latent 128 drops level_3_conv2 and the last pool)
@@ -155,7 +162,7 @@ class DiT(nn.Module):
                  depth: int = 12, num_heads: int = 6, mlp_ratio: float = 4.0,
                  time_freq_size: int = 256, tv: bool = True,
                  chain_blocks: bool = False, with_mask: bool = True,
-                 with_line: bool = True):
+                 with_line: bool = True, dropout: float = 0.1):
         super().__init__()
         self.input_size, self.patch_size = input_size, patch_size
         self.in_channels, self.hidden_size = in_channels, hidden_size
@@ -181,13 +188,19 @@ class DiT(nn.Module):
         self.n_streams = k
         self.decoder = satrn.Decoder(
             n_layers=6, n_head=6, d_k=64 * k, d_v=64 * k,
-            d_model=hidden_size * k, n_position=input_size // 2, d_inner=2048)
+            d_model=hidden_size * k, n_position=input_size // 2, d_inner=2048,
+            dropout=dropout)
         self.final_layer2 = FinalLayer(hidden_size * k, patch_size,
                                        in_channels, n_streams=k)
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.obs_embedder.proj.weight.dtype
+        """The compute dtype: autocast's when it is on for the weights'
+        device, else the weights' own."""
+        w = self.obs_embedder.proj.weight
+        if torch.is_autocast_enabled(w.device.type):
+            return torch.get_autocast_dtype(w.device.type)
+        return w.dtype
 
     def embed(self, name: str, x: torch.Tensor) -> torch.Tensor:
         """One patch embedder (+ pos): NCHW -> (N, T, D) in the DiT dtype."""
@@ -217,8 +230,10 @@ class DiT(nn.Module):
         mask_y512: Optional[torch.Tensor] = None,   # (N, 384, S, S)
         line_msk: Optional[torch.Tensor] = None,    # (N, 64, S, S)
         src_feat: Optional[torch.Tensor] = None,    # (N, 256, S, S) hoisted
-        seed_init_feat: bool = False,
+        seed_init_feat: Optional[torch.Tensor] = None,  # (N,) bool: t == T-1
         remap_timesteps: bool = True,
+        train: bool = False,
+        generator: Optional[torch.Generator] = None,   # dropout, train only
         cond_tokens: Optional[torch.Tensor] = None,
         msk6_tokens: Optional[torch.Tensor] = None,
         line_tokens: Optional[torch.Tensor] = None,
@@ -247,10 +262,13 @@ class DiT(nn.Module):
         elif line_msk is not None:
             streams.append(self.embed("l_embedder", line_msk))
         if self.tv:
-            if init_feat is None or seed_init_feat:
-                # zeros, or at t == T-1 the current pyramid output
-                # (cross_model.py:596-601)
-                init_feat = feat if seed_init_feat else torch.zeros_like(feat)
+            if init_feat is None:
+                init_feat = torch.zeros_like(feat)
+            # at t == T-1 the recurrent features are seeded from the current
+            # pyramid output (cross_model.py:596-601)
+            if seed_init_feat is not None:
+                init_feat = torch.where(seed_init_feat.reshape(-1, 1, 1, 1),
+                                        feat, init_feat.to(feat.dtype))
             r_in = torch.cat([init_flow.permute(0, 3, 1, 2).to(dt),
                               init_feat.to(dt)], dim=1)
             streams.append(self.embed("r_embedder", r_in))
@@ -266,10 +284,11 @@ class DiT(nn.Module):
         fused = torch.cat(outs, dim=-1)                  # (N, T, k*D)
         n, tt, d = fused.shape
         g = int(round(tt ** 0.5))
-        dec = self.decoder(fused.reshape(n, g, g, d))
+        dec = self.decoder(fused.reshape(n, g, g, d), train, generator)
         out = self.final_layer2(dec, t_emb)
         pred = unpatchify(out, self.patch_size, self.in_channels)
-        return pred.float() + init_flow.float(), feat.float()
+        return (at_least_f32(pred) + at_least_f32(init_flow),
+                at_least_f32(feat))
 
 
 # size registry of dvd_tpu/models/dit.py (reference DiT_models2)

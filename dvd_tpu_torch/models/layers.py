@@ -18,7 +18,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from dvd_tpu_torch.ops.kernels.attention import attention
-from dvd_tpu_torch.ops.kernels.conv3x3 import conv3x3
+from dvd_tpu_torch.ops.kernels.conv3x3 import conv3x3, conv3x3_trainable
+from dvd_tpu_torch.utils.dtypes import at_least_f32
 
 
 def modulate(x: torch.Tensor, shift: torch.Tensor,
@@ -29,7 +30,7 @@ def modulate(x: torch.Tensor, shift: torch.Tensor,
 
 def layer_norm(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """LayerNorm without affine, statistics in f32, result in x's dtype."""
-    return F.layer_norm(x.float(), (x.shape[-1],), eps=eps).to(x.dtype)
+    return F.layer_norm(at_least_f32(x), (x.shape[-1],), eps=eps).to(x.dtype)
 
 
 def scaled_dot_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -111,12 +112,14 @@ class PatchEmbed(nn.Module):
 
 
 def timestep_embedding(t: torch.Tensor, dim: int,
-                       max_period: float = 10000.0) -> torch.Tensor:
-    """GLIDE sinusoidal embedding, cat([cos, sin]) order, in f32."""
+                       max_period: float = 10000.0,
+                       dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """GLIDE sinusoidal embedding, cat([cos, sin]) order, in ``dtype``
+    (f32, or f64 for a float64 model)."""
     half = dim // 2
     freqs = torch.exp(-math.log(max_period) * torch.arange(
-        half, dtype=torch.float32, device=t.device) / half)
-    args = t.float()[:, None] * freqs[None]
+        half, dtype=dtype, device=t.device) / half)
+    args = t.to(dtype)[:, None] * freqs[None]
     emb = torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
     if dim % 2:
         emb = torch.cat([emb, torch.zeros_like(emb[:, :1])], dim=-1)
@@ -131,7 +134,10 @@ class TimestepEmbedder(nn.Module):
         self.mlp_2 = nn.Linear(hidden_size, hidden_size)
 
     def forward(self, t):
-        x = timestep_embedding(t, self.freq_embed_size).to(self.mlp_0.weight.dtype)
+        dtype = self.mlp_0.weight.dtype
+        x = timestep_embedding(t, self.freq_embed_size,
+                               dtype=torch.promote_types(dtype, torch.float32))
+        x = x.to(dtype)
         return self.mlp_2(F.silu(self.mlp_0(x)))
 
 
@@ -161,7 +167,8 @@ def fold_conv_bn(conv: nn.Conv2d, bn: Optional[BatchNorm],
     version counters, so it is recomputed only after the weights are
     replaced, moved or loaded (``load_state_dict`` copies in place and
     bumps the counters)."""
-    tensors = [conv.weight, conv.bias] + (list(bn.buffers()) if bn else [])
+    tensors = [conv.weight, conv.bias] + (
+        [bn.scale, bn.bias, bn.mean, bn.var] if bn else [])
     key = (dtype,) + tuple((t.data_ptr(), t._version) for t in tensors)
     cached = conv.__dict__.get("_k2_fold")
     if cached is not None and cached[0] == key:
@@ -180,6 +187,14 @@ def fold_conv_bn(conv: nn.Conv2d, bn: Optional[BatchNorm],
 
 def conv3x3_folded(conv: nn.Conv2d, bn: Optional[BatchNorm], x: torch.Tensor,
                    relu: bool) -> torch.Tensor:
+    """A 3x3 conv (+ a frozen BN, folded) through K2.  A conv without BN
+    takes its live weights through the autograd Function when a gradient
+    is needed (the DiT's trainable pyramid); a BN'd conv belongs to a
+    frozen aux net and always takes the folded, detached cache."""
+    if bn is None and torch.is_grad_enabled() and (
+            conv.weight.requires_grad or x.requires_grad):
+        return conv3x3_trainable(x, conv.weight, conv.bias, conv.dilation[0],
+                                 relu)
     w, scale, bias = fold_conv_bn(conv, bn, x.dtype)
     return conv3x3(x, w, scale, bias, conv.dilation[0], relu)
 
@@ -197,12 +212,17 @@ ZERO_INIT_LAYERS = ("adaLN_modulation_1.", "final_layer2.linear.")
 
 @torch.no_grad()
 def seeded_init_(module: nn.Module, generator: torch.Generator,
-                 std: float = 0.02) -> nn.Module:
+                 std: float = 0.02, zero_init: bool = False) -> nn.Module:
     """Random weights from an explicit generator, with no zero leaf (so the
     DiT's zero-initialised layers carry signal): matrices and conv kernels
     N(0, 1/fan_in), except the ``ZERO_INIT_LAYERS``, N(0, std^2); norm
     scales 1 + N(0, std^2); BN variances in [0.5, 1.5]; every other leaf
-    N(0, std^2).  Draws on the CPU, in ``state_dict`` order."""
+    N(0, std^2).  Draws on the CPU, in ``state_dict`` order.
+
+    ``zero_init`` starts the ``ZERO_INIT_LAYERS`` at zero instead, as
+    training from scratch does (the reference's adaLN-zero init: the DiT
+    then predicts ``init_flow`` exactly); every other leaf keeps the value
+    it has without it."""
     for name, t in module.state_dict().items():
         leaf = name.rsplit(".", 1)[-1]
         shape = tuple(t.shape)
@@ -216,6 +236,8 @@ def seeded_init_(module: nn.Module, generator: torch.Generator,
             val = 0.5 + torch.rand(shape, generator=generator)
         else:
             val = std * torch.randn(shape, generator=generator)
+        if zero_init and any(z in name for z in ZERO_INIT_LAYERS):
+            val = torch.zeros_like(val)
         t.copy_(val)
     return module
 
@@ -234,20 +256,69 @@ class LayerNorm(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """BatchNorm evaluated with stored statistics (every use in the serving
-    path is eval/frozen).  Buffers ``scale``, ``bias``, ``mean``, ``var``
-    keep the flax names; nothing is folded here."""
+    """BatchNorm with flax's leaf names (``scale``, ``bias`` parameters;
+    ``mean``, ``var`` running statistics as buffers).
 
-    def __init__(self, features: int, eps: float = 1e-5):
+    Eval (the serving path and the frozen aux nets, which fold it into
+    K2) uses the stored statistics.  Train mode (the SATRN decoder of the
+    trained DiT) is flax's ``nn.BatchNorm(use_running_average=False)``:
+    normalise with the batch's f32 mean and biased variance
+    ``max(0, E[x^2] - E[x]^2)``.  It does not touch the running statistics
+    itself: it keeps the batch's statistics in ``batch_stats`` and
+    :func:`commit_batch_stats` folds the last call's into them, as the JAX
+    train step keeps one update per step from its last model call."""
+
+    def __init__(self, features: int, eps: float = 1e-5,
+                 momentum: float = 0.9):
         super().__init__()
-        self.eps = eps
-        self.register_buffer("scale", torch.ones(features))
-        self.register_buffer("bias", torch.zeros(features))
+        self.eps, self.momentum = eps, momentum
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
+        self.batch_stats = None
 
     def affine(self):
         """(inv, shift) in f32 with ``bn(x) = x * inv + shift``; callers
         fold it into the neighbouring conv or apply it channel-last."""
-        inv = torch.rsqrt(self.var.float() + self.eps) * self.scale.float()
-        return inv, self.bias.float() - self.mean.float() * inv
+        inv = torch.rsqrt(at_least_f32(self.var) + self.eps) \
+            * at_least_f32(self.scale)
+        return inv, at_least_f32(self.bias) - at_least_f32(self.mean) * inv
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        """Channel-last x (..., C) -> x's dtype."""
+        if not train:
+            inv, shift = self.affine()
+            return x * inv.to(x.dtype) + shift.to(x.dtype)
+        dims = tuple(range(x.dim() - 1))
+        x32 = at_least_f32(x)
+        mean = x32.mean(dims)
+        var = torch.clamp((x32 * x32).mean(dims) - mean * mean, min=0.0)
+        self.batch_stats = (mean.detach(), var.detach())
+        mul = torch.rsqrt(var + self.eps) * at_least_f32(self.scale)
+        return ((x32 - mean) * mul + at_least_f32(self.bias)).to(x.dtype)
+
+
+@torch.no_grad()
+def commit_batch_stats(module: nn.Module) -> None:
+    """Fold each train-mode BatchNorm's last batch statistics into its
+    running ones, flax-style: ``ra = momentum * ra + (1 - momentum) *
+    batch`` (biased variance); then forget them."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm) and m.batch_stats is not None:
+            mean, var = m.batch_stats
+            m.mean.copy_(m.momentum * m.mean + (1 - m.momentum) * mean)
+            m.var.copy_(m.momentum * m.var + (1 - m.momentum) * var)
+            m.batch_stats = None
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax ``nn.Dropout`` in train mode: keep with probability 1 - rate
+    (a uniform draw from ``generator`` on x's device), scale by
+    1 / (1 - rate)."""
+    if rate <= 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) \
+        < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))

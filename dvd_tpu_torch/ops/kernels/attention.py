@@ -6,6 +6,11 @@ wrapper reads q/k/v through their (b, h, t) strides, so the non-contiguous
 dimension must be contiguous.  The output is allocated as a (B, T, H, Dh)
 buffer and returned as its (B, H, T, Dh) view, so ``merge_heads`` is a
 free reshape.
+
+When a gradient is needed, ``attention`` goes through an autograd
+Function: forward K1, backward ``attention_bwd``, the f32 recompute of
+``dvd_tpu/ops/pallas/attention.py:_attention_bwd`` in plain torch (the
+JAX package computes that backward outside Pallas too).
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ from typing import Optional
 import torch
 
 from dvd_tpu_torch.ops.kernels import build
+from dvd_tpu_torch.utils.dtypes import at_least_f32
 
 # head dims with a kernel (csrc/attention.cu DVD_FOR_EACH_DH): the mini
 # test DiT (16), DiT-S/B/L (64), the SATRN decoder over 2-4 streams (64 * k)
@@ -27,9 +33,10 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Plain twin: logits and softmax in f32, p cast to v's dtype before
     P.V with f32 accumulation (as the TPU kernel's ``_kernel``), output in
     q's dtype."""
-    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    logits = torch.matmul(at_least_f32(q),
+                          at_least_f32(k).transpose(-1, -2)) * scale
     p = torch.softmax(logits, dim=-1).to(v.dtype)
-    return torch.matmul(p.float(), v.float()).to(q.dtype)
+    return torch.matmul(at_least_f32(p), at_least_f32(v)).to(q.dtype)
 
 
 def _check(q, k, v):
@@ -48,16 +55,50 @@ def _check(q, k, v):
         raise ValueError(f"attention: head dim {dh} not in {HEAD_DIMS}")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("attention: the head dim must be contiguous")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError("attention kernel is forward-only")
+
+
+def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  g: torch.Tensor, scale: float):
+    """(dq, dk, dv) of softmax(q k^T * scale) v against the cotangent
+    ``g``: the probabilities recomputed in f32 (flash-style
+    rematerialisation), each gradient returned in its input's dtype."""
+    with torch.autocast(q.device.type, enabled=False):
+        q32, k32, v32, g32 = (at_least_f32(x) for x in (q, k, v, g))
+        p = torch.softmax(torch.matmul(q32, k32.transpose(-1, -2)) * scale,
+                          dim=-1)
+        dv = torch.matmul(p.transpose(-1, -2), g32)
+        dp = torch.matmul(g32, v32.transpose(-1, -2))
+        ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+        dq = torch.matmul(ds, k32) * scale
+        dk = torch.matmul(ds.transpose(-1, -2), q32) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _Attention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.scale = scale
+        return _forward(q, k, v, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (*attention_bwd(*ctx.saved_tensors, g, ctx.scale), None)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               scale: Optional[float] = None) -> torch.Tensor:
     """softmax(q k^T * scale) v for (B, H, Tq, Dh) x (B, H, Tk, Dh).
 
-    CPU tensors take the plain twin; CUDA tensors launch K1 or raise."""
+    CPU tensors take the plain twin; CUDA tensors launch K1 or raise.  When
+    a gradient is needed the call goes through the autograd Function."""
     scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else float(scale)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _Attention.apply(q, k, v, scale)
+    return _forward(q, k, v, scale)
+
+
+def _forward(q, k, v, scale: float) -> torch.Tensor:
     if q.device.type == "cpu":
         return attention_ref(q, k, v, scale)
     _check(q, k, v)

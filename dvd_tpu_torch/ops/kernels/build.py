@@ -49,6 +49,8 @@ SIGNATURES = {
                           _F, _I, _P],
     "dvd_conv3x3": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "dvd_gather_bilinear": [_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _I, _P],
+    "dvd_gather_bilinear_grad": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                 _L, _L, _I, _P],
 }
 
 

@@ -6,6 +6,12 @@ its contract: ``y = act(conv(x, w) * scale + bias)`` with ``scale`` and
 ``bias`` per output channel in f32 (frozen BN folded in by the caller,
 scale = 1 for plain convs), accumulation in f32, output in x's dtype.
 Layout is NCHW, the TPU kernel's planar layout without the 128-lane pad.
+
+``conv3x3_trainable`` is the autograd Function for trainable convs (the
+DiT's conditioning pyramid): forward K2 on the live weights, backward
+through ``torch.nn.grad.conv2d_input``/``conv2d_weight`` and a bias sum
+(the JAX package computes this backward in XLA, outside any Pallas
+kernel).
 """
 
 from __future__ import annotations
@@ -14,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from dvd_tpu_torch.ops.kernels import build
+from dvd_tpu_torch.utils.dtypes import at_least_f32
 
 # the halo-padded input tile fills a block's shared memory at dilation 32
 # (csrc/conv3x3.cu kMaxDilation)
@@ -26,8 +33,9 @@ def conv3x3_ref(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     """Plain twin (``_conv3x3_planar_xla``): f32 conv of x and w (w rounded
     to x's dtype first), f32 affine, optional ReLU, cast to x's dtype."""
     d = int(dilation)
-    y = F.conv2d(x.float(), w.to(x.dtype).float(), None, 1, d, d)
-    y = y * scale.float()[None, :, None, None] + bias.float()[None, :, None, None]
+    y = F.conv2d(at_least_f32(x), at_least_f32(w.to(x.dtype)), None, 1, d, d)
+    y = y * at_least_f32(scale)[None, :, None, None] \
+        + at_least_f32(bias)[None, :, None, None]
     if relu:
         y = torch.relu(y)
     return y.to(x.dtype)
@@ -57,7 +65,8 @@ def _check(x, w, scale, bias, dilation):
                          f"[1, {MAX_DILATION}]")
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, w, scale, bias)):
-        raise NotImplementedError("conv3x3 kernel is forward-only")
+        raise NotImplementedError("conv3x3 takes no autograd inputs; "
+                                  "conv3x3_trainable is the Function")
 
 
 def conv3x3(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
@@ -84,3 +93,42 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
 
 
 conv3x3.launches = 0
+
+
+class _Conv3x3(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, bias, dilation, relu):
+        wc = w.to(x.dtype).contiguous()
+        b = at_least_f32(bias).contiguous()
+        y = conv3x3(x.contiguous(), wc, torch.ones_like(b), b, dilation, relu)
+        ctx.save_for_backward(x, wc, y if relu else None)
+        ctx.dilation, ctx.relu = dilation, relu
+        ctx.dtypes = (w.dtype, bias.dtype)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, wc, y = ctx.saved_tensors
+        d = ctx.dilation
+        with torch.autocast(x.device.type, enabled=False):
+            g = g.to(x.dtype)
+            if ctx.relu:
+                g = g * (y > 0).to(g.dtype)
+            gx = gw = gb = None
+            if ctx.needs_input_grad[0]:
+                gx = torch.nn.grad.conv2d_input(x.shape, wc, g, padding=d,
+                                                dilation=d)
+            if ctx.needs_input_grad[1]:
+                gw = torch.nn.grad.conv2d_weight(x, wc.shape, g, padding=d,
+                                                 dilation=d).to(ctx.dtypes[0])
+            if ctx.needs_input_grad[2]:
+                gb = at_least_f32(g).sum((0, 2, 3)).to(ctx.dtypes[1])
+        return gx, gw, gb, None, None
+
+
+def conv3x3_trainable(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+                      dilation: int = 1, relu: bool = True) -> torch.Tensor:
+    """``act(conv(x, w) + bias)`` through K2 with gradients for x, w and
+    bias: w is cast to x's dtype (the compute dtype) for the kernel and
+    its gradient returned in w's own dtype (the parameter dtype)."""
+    return _Conv3x3.apply(x, w, bias, int(dilation), bool(relu))

@@ -41,8 +41,11 @@ def _linear_weights_np(n_in: int, n_out: int, align_corners: bool) -> np.ndarray
 @functools.lru_cache(maxsize=256)
 def _linear_weights(n_in: int, n_out: int, align_corners: bool,
                     device: torch.device, dtype: torch.dtype) -> torch.Tensor:
-    return torch.from_numpy(_linear_weights_np(n_in, n_out, align_corners)) \
-        .to(device, dtype)
+    # a normal tensor even when first built under inference_mode (serving):
+    # the cache is shared with the training path, where autograd saves it
+    with torch.inference_mode(False):
+        return torch.from_numpy(
+            _linear_weights_np(n_in, n_out, align_corners)).to(device, dtype)
 
 
 def resize_bilinear(x: torch.Tensor, size: Tuple[int, int],

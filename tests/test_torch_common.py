@@ -62,3 +62,128 @@ def mask_margin_shift(d0: np.ndarray, margin_logit: float = 0.3) -> float:
     d0 = np.clip(d0.astype(np.float64), 1e-7, 1 - 1e-7)
     z = np.log(d0 / (1 - d0))
     return float(margin_logit - z.min())
+
+
+def torch_named(jax_tree, module: torch.nn.Module, collection="params"):
+    """A flax tree (parameters, gradients, EMA) under the port module's
+    state_dict names, as numpy arrays (Dense/Conv kernels transposed)."""
+    from dvd_tpu_torch.training.convert import variables_to_state_dict
+
+    sd, _ = variables_to_state_dict({collection: np_tree(jax_tree)}, module)
+    return {k: v.numpy() for k, v in sd.items()}
+
+
+def assert_trees_close(got: dict, want: dict, rel: float, floor: float = 1.0):
+    """Every tensor of ``want`` matched in ``got`` within ``rel * max(floor,
+    max |want|)``, each against its own largest element (gradients of
+    different layers differ by orders of magnitude)."""
+    assert set(want) <= set(got), sorted(set(want) - set(got))[:5]
+    for k, w in want.items():
+        g = np.asarray(got[k].detach() if torch.is_tensor(got[k]) else got[k])
+        bar = rel * max(floor, float(np.abs(w).max()))
+        err = float(np.abs(g - w).max())
+        assert err <= bar, f"{k}: max err {err:.3e} > {bar:.3e}"
+
+
+def no_flax_dropout(monkeypatch) -> None:
+    """flax ``nn.Dropout`` as the identity for one test (the port's side
+    builds its modules with ``dropout=0``): the two frameworks draw
+    different random bits, so the parity tests run without dropout."""
+    import flax.linen as fnn
+
+    monkeypatch.setattr(fnn.Dropout, "__call__", lambda self, x, *a, **k: x)
+
+
+def random_variables(module, *args, seed: int = 0, **kwargs):
+    """Seeded random flax variables for ``module`` without compiling its
+    init (``jax.eval_shape`` gives the tree), drawn as the port's
+    ``seeded_init_`` draws: kernels N(0, 1/fan_in), except the DiT's
+    zero-initialised adaLN and final layers, N(0, 0.02^2) (so they carry
+    signal without dominating); norm scales 1 + N(0, 0.02^2); BN
+    variances in [0.5, 1.5]; every other leaf N(0, 0.02^2)."""
+    from dvd_tpu_torch.models.layers import ZERO_INIT_LAYERS
+
+    shapes = jax.eval_shape(lambda: module.init(jax.random.PRNGKey(0),
+                                                *args, **kwargs))
+    rng = np.random.RandomState(seed)
+    small = tuple(z.rstrip(".").replace(".", "/") for z in ZERO_INIT_LAYERS)
+
+    def walk(node, path):
+        if hasattr(node, "items"):
+            return {k: walk(v, f"{path}/{k}") for k, v in sorted(node.items())}
+        shape, leaf = tuple(node.shape), path.rsplit("/", 1)[-1]
+        if leaf == "kernel" and not any(z in path for z in small):
+            val = rng.randn(*shape) / np.sqrt(np.prod(shape[:-1]))
+        elif leaf == "scale":
+            val = 1 + 0.02 * rng.randn(*shape)
+        elif leaf == "var":
+            val = 0.5 + rng.rand(*shape)
+        else:
+            val = 0.02 * rng.randn(*shape)
+        return val.astype(np.float32)
+
+    return walk(shapes, "")
+
+
+# the tiny training configuration of tests/test_train_step.py: latent 16,
+# source 128, a DiT 48 wide and 2 deep
+S, SRC = 16, 128
+MINI_DIT = dict(input_size=S, patch_size=2, hidden_size=48, depth=2,
+                num_heads=3)
+TINY_MODEL = dict(image_size=S, source_size=SRC, perception_size=64,
+                  compute_dtype="float32")
+
+
+def mini_dit_variables(seed: int = 11):
+    """(flax DiT-mini, its seeded random variables)."""
+    from dvd_tpu.models.dit import DiT as JDiT
+
+    mod = JDiT(tv=True, chain_blocks=False, **MINI_DIT)
+    z = jax.numpy.zeros
+    v = random_variables(
+        mod, z((1, S, S, 2)), z((1,)), y512=z((1, SRC, SRC, 3)),
+        mask_cat=z((1, SRC, SRC, 1)), mask_y512=z((1, S, S, 384)),
+        line_msk=z((1, S, S, 64)), init_flow=z((1, S, S, 2)),
+        init_feat=z((1, S, S, 256)), remap_timesteps=False, seed=seed)
+    return mod, v
+
+
+def mini_dit_port(variables):
+    """The port's DiT-mini with ``variables``, dropout off."""
+    from dvd_tpu_torch.models.dit import DiT
+
+    return port(DiT(**MINI_DIT, dropout=0.0), variables)
+
+
+def smooth_field(rng, b: int, h: int, amp: float) -> np.ndarray:
+    """A smooth random (B, h, h, 2) field, a sum of three low sinusoids:
+    sampling coordinates built from it are not whole pixels (where the
+    bilinear sampler's gradient has its kink)."""
+    yy, xx = np.meshgrid(np.linspace(0, 1, h), np.linspace(0, 1, h),
+                         indexing="ij")
+    out = np.zeros((b, h, h, 2))
+    for _ in range(3):
+        a = rng.randn(b, 1, 1, 2) * amp
+        fx, fy, ph = rng.rand(3) * 3
+        out += a * np.sin(2 * np.pi * (fx * xx + fy * yy + ph))[None, ..., None]
+    return out.astype(np.float32)
+
+
+COND_KEYS = ("y512", "mask_cat", "mask_y512", "line_msk")
+
+
+def train_batch(b: int = 2, seed: int = 1):
+    """The JAX train step's batch (NHWC jnp) and the port's (NCHW
+    conditioning, channel-last flows)."""
+    rng = np.random.RandomState(seed)
+    jb = {
+        "y512": rng.rand(b, SRC, SRC, 3).astype(np.float32),
+        "mask_cat": np.ones((b, SRC, SRC, 1), np.float32),
+        "mask_y512": (0.1 * rng.randn(b, S, S, 384)).astype(np.float32),
+        "line_msk": (0.1 * rng.randn(b, S, S, 64)).astype(np.float32),
+        "flow64": smooth_field(rng, b, S, 0.05),
+        "flow_inter": smooth_field(rng, b, SRC, 0.02),
+        "mask": np.ones((b, SRC, SRC, 1), np.float32),
+    }
+    pb = {k: nchw(v) if k in COND_KEYS else t(v) for k, v in jb.items()}
+    return {k: jax.numpy.asarray(v) for k, v in jb.items()}, pb

@@ -7,16 +7,22 @@ skips without a CUDA device.  The file imports neither JAX nor the
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
 Shapes are small edge cases (ragged lengths, odd planes, every head dim
-and dilation the kernels take, out-of-range coordinates); the serving
-path's full shapes are checked by ``chip_smoke.py``.
+and dilation the kernels take, out-of-range coordinates); the serving and
+training paths' full shapes are checked by ``chip_smoke.py``.  The
+autograd Functions (attention, the trainable conv, ``warp_const_src``)
+are checked against the autograd of the plain versions.
 """
 
 import pytest
 import torch
 
+from dvd_tpu_torch.ops.grid_sample import unnormalize, warp_const_src
 from dvd_tpu_torch.ops.kernels.attention import HEAD_DIMS, attention, attention_ref
-from dvd_tpu_torch.ops.kernels.conv3x3 import conv3x3, conv3x3_ref
+from dvd_tpu_torch.ops.kernels.conv3x3 import (conv3x3, conv3x3_ref,
+                                               conv3x3_trainable)
 from dvd_tpu_torch.ops.kernels.grid_sample import (gather_bilinear,
+                                                   gather_bilinear_grad,
+                                                   gather_bilinear_grad_ref,
                                                    gather_bilinear_ref)
 
 pytestmark = pytest.mark.cuda
@@ -110,3 +116,100 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     img = torch.rand(1, 2, 4, 4, generator=g).to(dev)
     with pytest.raises(TypeError):
         gather_bilinear(img.half(), img[:, 0], img[:, 1])
+    gx = img[:, 0].contiguous()
+    with pytest.raises(TypeError):                          # K4: f64 ct
+        gather_bilinear_grad(img, gx, gx, img.double())
+    with pytest.raises(ValueError):                         # K4: ct shape
+        gather_bilinear_grad(img, gx, gx, img[:, :1].contiguous())
+    with pytest.raises(ValueError):                         # K4: strided
+        gather_bilinear_grad(img, gx.transpose(1, 2), gx, img)
+    with pytest.raises(ValueError):                         # K4: mixed devices
+        gather_bilinear_grad(img, gx, gx, img.cpu())
+
+
+@pytest.mark.parametrize("padding_mode", ["zeros", "border"])
+@pytest.mark.parametrize("shape", [(2, 3, 13, 17, 9, 11), (1, 2, 7, 129, 3, 200),
+                                   (3, 1, 64, 64, 31, 33)])
+def test_gather_grad_kernel(dev, padding_mode, shape):
+    n, c, h, w, p, q = shape
+    g = _gen()
+    img = torch.rand(n, c, h, w, generator=g).to(dev)
+    gx = (torch.rand(n, p, q, generator=g) * (w + 6) - 3).to(dev)
+    gy = (torch.rand(n, p, q, generator=g) * (h + 6) - 3).to(dev)
+    ct = torch.randn(n, c, p, q, generator=g).to(dev)
+    before = gather_bilinear_grad.launches
+    got = gather_bilinear_grad(img, gx, gy, ct, padding_mode)
+    assert gather_bilinear_grad.launches == before + 1
+    for a, b in zip(got, gather_bilinear_grad_ref(img, gx, gy, ct, padding_mode)):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+
+
+def _grads(fn, inputs, ct):
+    """[fn's output, the gradient of sum(output * ct) for each input]."""
+    leaves = [x.detach().clone().requires_grad_() for x in inputs]
+    out = fn(*leaves)
+    torch.autograd.backward(out, ct)
+    return [out.detach()] + [x.grad for x in leaves]
+
+
+def _close_grads(got, want, bar):
+    for a, b in zip(got, want):
+        torch.testing.assert_close(
+            a.float(), b.float(), rtol=0,
+            atol=bar * max(1.0, b.float().abs().max().item()))
+
+
+def test_warp_const_src_grad(dev):
+    """Forward K3, backward K4, against the autograd of the plain gather."""
+    g = _gen()
+    src = torch.rand(2, 2, 40, 70, generator=g).to(dev)
+    grid = (torch.rand(2, 33, 65, 2, generator=g) * 2.2 - 1.1).to(dev)
+    ct = torch.randn(2, 2, 33, 65, generator=g).to(dev)
+    before = gather_bilinear_grad.launches
+    got = _grads(lambda gr: warp_const_src(src, gr), [grid], ct)
+    assert gather_bilinear_grad.launches == before + 1
+
+    def plain(gr):
+        return gather_bilinear_ref(src, unnormalize(gr[..., 0], 70),
+                                   unnormalize(gr[..., 1], 40), "zeros")
+
+    _close_grads(got, _grads(plain, [grid], ct), 1e-5)
+
+
+@pytest.mark.parametrize("dtype,bar", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("dh", [64, 256])
+def test_attention_function_grads(dev, dtype, bar, dh):
+    """The Function (K1 forward, f32 recompute backward) against autograd
+    of the plain twin; bf16 differs by the twin's bf16 probabilities."""
+    g = _gen()
+    q, k, v = (torch.randn(2, 3, t_, dh, generator=g).to(dev, dtype)
+               for t_ in (50, 70, 70))
+    ct = torch.randn(2, 3, 50, dh, generator=g).to(dev, dtype)
+    before = attention.launches
+    got = _grads(lambda *a: attention(*a, 0.1), [q, k, v], ct)
+    assert attention.launches == before + 1
+    _close_grads(got, _grads(lambda *a: attention_ref(*a, 0.1), [q, k, v], ct),
+                 bar)
+
+
+@pytest.mark.parametrize("dtype,bar", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("dilation", [1, 2])
+def test_conv3x3_function_grads(dev, dtype, bar, dilation):
+    """The trainable conv (K2 forward on the live weights, cuDNN backward)
+    against autograd of the plain twin, without the ReLU (its mask flips
+    where the two forwards straddle zero); w and b stay f32."""
+    g = _gen()
+    x = torch.randn(2, 5, 19, 23, generator=g).to(dev, dtype)
+    w = (torch.randn(7, 5, 3, 3, generator=g) / 6).to(dev)
+    b = (0.1 * torch.randn(7, generator=g)).to(dev)
+    ct = torch.randn(2, 7, 19, 23, generator=g).to(dev, dtype)
+    before = conv3x3.launches
+    got = _grads(lambda *a: conv3x3_trainable(*a, dilation, False),
+                 [x, w, b], ct)
+    assert conv3x3.launches == before + 1
+    assert got[2].dtype == got[3].dtype == torch.float32
+    want = _grads(lambda xx, ww, bb: conv3x3_ref(
+        xx, ww, torch.ones_like(bb), bb, dilation, False), [x, w, b], ct)
+    _close_grads(got, want, bar)

@@ -143,7 +143,8 @@ def test_dit_matches_flax(seed_init_feat):
             t(inp["x"]), t(inp["t"]), init_flow=t(inp["init_flow"]),
             init_feat=nchw(inp["init_feat"]), y512=nchw(inp["y512"]),
             mask_cat=nchw(inp["mask_cat"]), mask_y512=nchw(inp["mask_y512"]),
-            line_msk=nchw(inp["line_msk"]), seed_init_feat=seed_init_feat,
+            line_msk=nchw(inp["line_msk"]),
+            seed_init_feat=torch.full((2,), seed_init_feat),
             remap_timesteps=True)
     _close(nhwc(feat), want_feat, 1e-4, 1e-4)
     assert np.abs(np.asarray(want_pred) - inp["init_flow"]).max() > 1e-2

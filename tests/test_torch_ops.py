@@ -170,15 +170,23 @@ def test_nvcc_command_targets_sm90a(tmp_path):
 
 def test_port_imports_no_jax_flax_pil():
     """``import dvd_tpu_torch`` and ``chip_smoke`` (and the modules the
-    serving path uses) load neither JAX, flax nor PIL."""
+    serving and training paths use) load neither the JAX package
+    ``dvd_tpu`` (not even a pure-Python module of it), JAX, flax nor PIL."""
     code = (
         "import sys\n"
         "import dvd_tpu_torch, chip_smoke\n"
+        "import dvd_tpu_torch.config\n"
         "import dvd_tpu_torch.evaluation.pipeline\n"
         "import dvd_tpu_torch.cli.run_sampling\n"
         "import dvd_tpu_torch.training.convert\n"
+        "import dvd_tpu_torch.diffusion.losses\n"
+        "import dvd_tpu_torch.training.resample\n"
+        "import dvd_tpu_torch.training.train_state\n"
+        "import dvd_tpu_torch.training.train_loop\n"
+        "import dvd_tpu_torch.training.checkpoint\n"
+        "import dvd_tpu_torch.utils.logger\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'PIL'))\n"
+        "('dvd_tpu', 'jax', 'jaxlib', 'flax', 'PIL'))\n"
         "assert not bad, bad\n"
         "print('clean')\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))
