@@ -9,12 +9,14 @@ exits non-zero -- nothing is caught):
 1. env      the card's name and power limit, torch/CUDA versions, the TF32
             settings; builds the kernels from ``dvd_tpu_torch/csrc`` for
             sm_90a and prints nvcc's ``-Xptxas -v`` report.
-2. kernels  each hand-written kernel (K1-K4) against its plain PyTorch twin
+2. kernels  each hand-written kernel (K1-K5) against its plain PyTorch twin
             on the card at the serving and training paths' shapes, f32 and
-            bf16, with the stated tolerances; the autograd Functions
-            (attention, the trainable conv, warp_const_src) against the
-            autograd of the plain versions; then each kernel's time beside
-            its twin's, one PyTorch library call's and its bound.
+            bf16, with the stated tolerances (K5 bit for bit, at the
+            probe's case and at an unwarp-scale case); the autograd
+            Functions (attention, the trainable conv, warp_const_src)
+            against the autograd of the plain versions; then each
+            kernel's time beside its twin's, one PyTorch library call's
+            and its bound.
 3. slice32  the serving slice at full DiT-S/2 width and 512^2, batch 1, in
             f32: once on the card through the kernels (launch counts must
             all be > 0) and once on the CPU through the twins, with the
@@ -40,11 +42,28 @@ exits non-zero -- nothing is caught):
             loss, parameters and EMA moved, launches per step, peak
             memory, and one profiled step (device time by kernel, the
             device's busy share).
+7. probe    the K5 probe entry (``dvd_tpu_torch.tools.gather_probe``) on
+            the card: exact, and K5 launched.
+8. dataset  the dataset serving path.  Weights: the aux nets of a seeded
+            pipeline written as flax msgpack files and the DiT from the
+            EMA snapshot that phase 6's ``train()`` wrote, served through
+            ``maybe_load_pipeline_weights`` into a pipeline from another
+            seed (4/4 loaded, every tensor equal to its source in the
+            serving dtype).  ``unwarp_native`` on the card against the CPU
+            for two pages in a 1536^2 canvas, TF32 off and on.  Then the
+            shipped config through ``run_benchmark`` on 100 stand-in pages
+            of 900-2000 px sides (canvas 2048), batch 4, and on 6 pages (a
+            padded last batch): run_stats.json, launches, peak memory, one
+            finite coordinate map in [-1, 1] per page; each stage's ms
+            per batch as the mean of 10 calls.  The stand-in
+            dataset builds its pages from seeded arrays (the card's
+            machine has no PIL or cv2), so decode and resize are outside
+            the measured window.
 
-The line before the last is the per-kernel JSON record (launches from the
-training run, which drives all four kernels); the last line is
-``{"ok": true, "device": {...}}``.  Without a CUDA device the script
-raises before printing any result.
+The line before the last is the per-kernel JSON record (K1-K4 launches
+from the training run, which drives all four; K5's from the probe); the
+last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device the
+script raises before printing any result.
 """
 
 from __future__ import annotations
@@ -52,6 +71,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -72,6 +92,9 @@ TOL = {
     "bf16": 2e-2,              # x max(1, max|ref|), same bf16 inputs
     "slice_flow": 1e-3,        # f32 slice, card vs CPU
     "slice_image": 1e-3,       # unwarped image in [0, 1]
+    "native_grid": 1e-5,       # unwarp_native's canvas grid, card vs CPU
+    "native_image": 0.5,       # its f32 image on [0, 255]
+    "native_u8": 1,            # its uint8 image, levels
     "train_loss_rel": 1e-4,    # f32 train step, card vs CPU, relative
     "train_grad": 1e-3,        # every gradient, x max(1, max|g|)
 }
@@ -86,8 +109,9 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 RECORD_CASE = {
     "attention": "(8, 6, 1024, 256) scale 0.0625 bfloat16",
     "conv3x3": "256->256 @128^2 d1 b4 bfloat16",
-    "gather_bilinear": "(4, 3, 512, 512) zeros",
+    "gather_bilinear": "(4, 3, 2048, 2048) zeros",
     "gather_bilinear_grad": "(10, 2, 512, 512) zeros",
+    "gather2d": "(2048, 2048) f32 at (2048, 2048) int32 near-identity",
 }
 
 KERNELS = {
@@ -100,7 +124,12 @@ KERNELS = {
                         "dvd_tpu/ops/pallas/grid_sample.py:122"),
     "gather_bilinear_grad": ("dvd_tpu_torch/csrc/grid_sample.cu",
                              "dvd_tpu/ops/pallas/grid_sample.py:253"),
+    "gather2d": ("dvd_tpu_torch/csrc/gather_probe.cu",
+                 "tools/pallas_gather_probe.py:72"),
 }
+# the kernels of the training path (K5 is the probe's alone)
+TRAIN_KERNELS = ("attention", "conv3x3", "gather_bilinear",
+                 "gather_bilinear_grad")
 
 
 def log(msg: str) -> None:
@@ -112,6 +141,24 @@ def card_label() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def _entry_name(symbol: str) -> str:
+    """The name of a non-template kernel from its mangled symbol, with the
+    anonymous namespace dropped (the symbol itself if it is not mangled)."""
+    import re
+
+    m = re.match(r"_ZN?", symbol)
+    pos = m.end() if m else 0
+    while m:
+        m = re.compile(r"\d+").match(symbol, pos)
+        if not m:
+            break
+        name = symbol[m.end():m.end() + int(m.group())]
+        pos = m.end() + len(name)
+        if not name.startswith("_GLOBAL__N"):
+            return name
+    return symbol
 
 
 def ptxas_report(log_text: str):
@@ -132,7 +179,8 @@ def ptxas_report(log_text: str):
                 if k else []
             args = [names.get(a, a[2:] if a.startswith("Li") else a)
                     for a in args]
-            entry = f"{k.group(1)}<{','.join(args)}>" if k else m.group(1)
+            entry = f"{k.group(1)}<{','.join(args)}>" if k else \
+                _entry_name(m.group(1))
         elif entry and "spill stores" in line:
             spills = line.split("info    :")[-1].strip()
         elif entry and "Used" in line and "registers" in line:
@@ -199,7 +247,8 @@ def phase_env(state):
     log("[env] dynamic shared memory per block: conv3x3_kernel " + ", ".join(
         f"<{cot}> d{d} {kib(kl.lib.dvd_conv3x3_smem_bytes(cot, d))}"
         for cot in (16, 32) for d in (1, 2, 4, 8))
-        + "; gather_bilinear_kernel 0; gather_bilinear_grad_kernel 0")
+        + "; gather_bilinear_kernel 0; gather_bilinear_grad_kernel 0; "
+        "gather2d_kernel 0")
 
 
 # ---------------------------------------------------------------- phase 2
@@ -264,9 +313,11 @@ def phase_kernels(state):
     from dvd_tpu_torch.ops.kernels.attention import attention, attention_ref
     from dvd_tpu_torch.ops.kernels.conv3x3 import (conv3x3, conv3x3_ref,
                                                    conv3x3_trainable)
+    from dvd_tpu_torch.ops.kernels.gather2d import gather2d, gather2d_ref
     from dvd_tpu_torch.ops.kernels.grid_sample import (
         gather_bilinear, gather_bilinear_grad, gather_bilinear_grad_ref,
         gather_bilinear_ref)
+    from dvd_tpu_torch.tools.gather_probe import probe_inputs
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -327,10 +378,12 @@ def phase_kernels(state):
                             2 * b * cout * cin * 9 * hw * hw, dt)
 
         log("[kernels] K3 gather_bilinear (N, C, H, W) at a smooth flow grid")
-        # the serving unwarp and re-warp, then the training loss's warp and
-        # the rollout's re-warps at batch 10
+        # the serving unwarp and re-warp, the dataset path's unwarp_native
+        # at its 2048^2 canvas, then the training loss's warp and the
+        # rollout's re-warps at batch 10
         for n, c, hw, modes in ((4, 3, 512, ("zeros", "border")),
                                 (8, 256, 64, ("zeros",)),
+                                (4, 3, 2048, ("zeros",)),
                                 (10, 2, 512, ("zeros",)),
                                 (10, 256, 64, ("zeros",))):
             img = torch.rand((n, c, hw, hw), generator=gen, device=dev)
@@ -381,6 +434,40 @@ def phase_kernels(state):
                         ct, img, grid, 0, pad, True, [False, True]),
                     _nbytes(img, gx, gy, ct, *got), n * hw * hw * (16 * c + 20),
                     torch.float32)
+
+        log("[kernels] K5 gather2d (H, W) f32 at (M, N) int32 indices, bit "
+            "for bit: the probe's case, then an unwarp-scale one")
+        n = 2048
+        ramp = torch.arange(n, device=dev, dtype=torch.int32)
+
+        def jitter():
+            return torch.randint(-2, 3, (n, n), generator=gen, device=dev,
+                                 dtype=torch.int32)
+
+        cases = [("(64, 256) f32 at (8, 128) int32, the probe's case",
+                  *(a.to(dev) for a in probe_inputs())),
+                 (RECORD_CASE["gather2d"],
+                  torch.rand((n, n), generator=gen, device=dev),
+                  (ramp[:, None] + jitter()).clamp_(0, n - 1).contiguous(),
+                  (ramp[None, :] + jitter()).clamp_(0, n - 1).contiguous())]
+        for case, im, iy, ix in cases:
+            got = gather2d(im, iy, ix)
+            want = gather2d_ref(im, iy, ix)
+            err = (got - want).abs().max().item()
+            exact = torch.equal(got, want)
+            log(f"  {case}: bit for bit {'ok' if exact else 'FAIL'} "
+                f"(max_abs_err {err:.3e})")
+            if not exact:
+                raise AssertionError(f"K5 {case}: not bit for bit ({err})")
+            errs["gather2d"] = max(errs["gather2d"], err)
+            flat = im.reshape(-1)
+            idx = iy.long() * im.shape[1] + ix.long()
+            # no floating-point work: bound by the bytes alone
+            _record(times, "gather2d", case,
+                    lambda: gather2d(im, iy, ix),
+                    lambda: gather2d_ref(im, iy, ix),
+                    lambda: torch.take(flat, idx),
+                    _nbytes(im, iy, ix, got), 0, torch.float32)
 
     log("[kernels] autograd Functions against the autograd of the plain "
         "versions, at the training path's shapes (batch 10): the forward "
@@ -436,7 +523,7 @@ def phase_kernels(state):
         lib = f"{r['library_ms']:.4f} ms" if r["library_ms"] else "none"
         log(f"  {name} {case}: kernel {r['ms']:.4f} ms, plain twin "
             f"{r['plain_ms']:.4f} ms ({r['plain_ms'] / r['ms']:.2f}x), "
-            f"library {lib}, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+            f"library {lib}, bound {r['bound_ms']:.4g} ms ({r['bound_by']})")
     state["kernel_errs"] = errs
     state["kernel_times"] = times
 
@@ -458,18 +545,20 @@ def _page(b: int, h: int, w: int, gen: torch.Generator) -> torch.Tensor:
 # the serving path runs K1-K3 (K4 is the training loss's backward); one
 # shipped main-path run launches them exactly this often
 SERVE_LAUNCHES = {"attention": 42, "conv3x3": 261, "gather_bilinear": 3,
-                  "gather_bilinear_grad": 0}
+                  "gather_bilinear_grad": 0, "gather2d": 0}
 
 
 def _kernel_fns():
     from dvd_tpu_torch.ops.kernels.attention import attention
     from dvd_tpu_torch.ops.kernels.conv3x3 import conv3x3
+    from dvd_tpu_torch.ops.kernels.gather2d import gather2d
     from dvd_tpu_torch.ops.kernels.grid_sample import (gather_bilinear,
                                                        gather_bilinear_grad)
 
     return {"attention": attention, "conv3x3": conv3x3,
             "gather_bilinear": gather_bilinear,
-            "gather_bilinear_grad": gather_bilinear_grad}
+            "gather_bilinear_grad": gather_bilinear_grad,
+            "gather2d": gather2d}
 
 
 def reset_launches() -> None:
@@ -767,7 +856,7 @@ def phase_train32(state):
             f"{shift:+.3f}, soft-mask margin {margin:.3f})")
     del pipes
     log(f"[train32] kernel launches in the card run: {counts}")
-    if min(counts.values()) <= 0:
+    if min(counts[k] for k in TRAIN_KERNELS) <= 0:
         raise AssertionError(f"a kernel of the path did not launch: {counts}")
     (lc, gc), (lp, gp) = runs["cuda"], runs["cpu"]
     rel = abs(lc - lp) / max(abs(lp), 1e-30)
@@ -907,6 +996,11 @@ def phase_train(state):
         counts = read_launches()
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         files = sorted(os.listdir(os.path.join(ws, cfg.name)))
+        # the EMA snapshot outlives the workspace: phase 8 serves it
+        snap = f"ema_{cfg.train.ema_rates[0]}_{steps:06d}.msgpack"
+        state["ema_snapshot"] = shutil.copy(
+            os.path.join(ws, cfg.name, snap),
+            os.path.join(state["workdir"], snap))
     state["train_launches"] = counts
     if train_state.step != steps:
         raise AssertionError(f"train() took {train_state.step} steps")
@@ -914,7 +1008,7 @@ def phase_train(state):
         f"included) and wrote {files}")
     per_step = {k: v / steps for k, v in counts.items()}
     log(f"[train] kernel launches in the run: {counts}; per step {per_step}")
-    if min(counts.values()) <= 0:
+    if min(counts[k] for k in TRAIN_KERNELS) <= 0:
         raise AssertionError(f"a kernel of the path did not launch: {counts}")
 
     losses = [r["loss"] for r in logger.rows]
@@ -929,6 +1023,9 @@ def phase_train(state):
                 for k in params)
     ema = train_state.ema_params[0]
     ema_moved = max((ema[k].cpu() - init[k]).abs().max().item() for k in ema)
+    # what the EMA snapshot holds: the EMA parameters, the BN statistics
+    state["ema_source"] = {k: v.detach().cpu() for k, v in {
+        **train_state.model.state_dict(), **ema}.items()}
     log(f"[train] max |param - init| {moved:.3e}, max |EMA - init| "
         f"{ema_moved:.3e}")
     if not (moved > 0 and 0 < ema_moved < moved):
@@ -969,20 +1066,282 @@ def phase_train(state):
             f"launches, {ms / busy:.1%} of the step's device time")
 
 
+# ---------------------------------------------------------------- phase 7
+def phase_probe(state):
+    from dvd_tpu_torch.tools.gather_probe import run_probe
+
+    torch.cuda.synchronize()
+    reset_launches()
+    err = run_probe("cuda")
+    torch.cuda.synchronize()
+    state["probe_launches"] = read_launches()
+    log(f"[probe] K5 probe entry on the card: max_err {err}, launches "
+        f"{state['probe_launches']}")
+    if state["probe_launches"]["gather2d"] <= 0:
+        raise AssertionError("the probe did not launch K5")
+
+
+# ---------------------------------------------------------------- phase 8
+def _stand_in_dataset(n: int, seed: int, source_size: int):
+    """``n`` seeded synthetic pages with sides drawn from 900-2000 px, as
+    a ``BenchmarkDataset`` (the same ``__len__``/``__getitem__``/
+    ``batches`` contract and items; the card's machine has no PIL or cv2
+    to decode files) on ``BenchmarkDataset``'s fit canvas.  The pages and
+    their 512^2 sources are drawn before the run, so an item costs only
+    its canvas copy and the driver's window holds no page synthesis.
+    Returns the dataset and the (h, w) of its pages."""
+    import torch.nn.functional as F
+
+    from dvd_tpu_torch.data.benchmark import BenchmarkDataset
+
+    gen = torch.Generator().manual_seed(seed)
+    sizes = torch.randint(900, 2001, (n, 2), generator=gen).tolist()
+    pages, sources = [], []
+    for h, w in sizes:
+        u8 = (_page(1, h, w, gen)[0] * 255).round().to(torch.uint8)
+        src = F.interpolate(u8.permute(2, 0, 1)[None].float(),
+                            size=(source_size, source_size),
+                            mode="bilinear", align_corners=False)
+        pages.append(u8.numpy())
+        sources.append((src[0].permute(1, 2, 0) / 255).numpy())
+
+    class StandInPages(BenchmarkDataset):
+        def __getitem__(self, i):
+            h, w = sizes[i]
+            padded = np.zeros((self.pad_to, self.pad_to, 3), np.uint8)
+            padded[:h, :w] = pages[i]
+            return {"source_image": sources[i], "source_padded": padded,
+                    "hw": np.array([h, w], np.int32), "path": self.paths[i]}
+
+    # the fit canvas: the smallest multiple of 256 that holds every page
+    canvas = -(-max(max(hw) for hw in sizes) // 256) * 256
+    return StandInPages(paths=[f"page_{i:03d}.png" for i in range(n)],
+                        source_size=source_size, pad_to=canvas), sizes
+
+
+def _smooth_flow(b: int, s: int, gen: torch.Generator) -> torch.Tensor:
+    """A smooth (B, S, S, 2) offset field of a few hundredths."""
+    yy, xx = torch.meshgrid(torch.linspace(0, 1, s), torch.linspace(0, 1, s),
+                            indexing="ij")
+    a = (torch.rand((b, 2, 3), generator=gen) - 0.5) * 0.06
+    f = torch.stack([a[:, i, 0, None, None] * torch.sin(3 * xx + 2 * yy)
+                     + a[:, i, 1, None, None] * torch.cos(4 * yy)
+                     + a[:, i, 2, None, None] * xx * yy for i in (0, 1)], -1)
+    return f.contiguous()
+
+
+def _dataset_weights(state, cfg):
+    """Aux-net files from a seeded pipeline and the DiT from the EMA
+    snapshot; a pipeline from another seed loads them: 4/4, each tensor
+    equal to its source in the serving dtype."""
+    from dvd_tpu_torch.evaluation.pipeline import DewarpPipeline
+    from dvd_tpu_torch.training.checkpoint import (maybe_load_pipeline_weights,
+                                                   save_variables)
+    from dvd_tpu_torch.training.convert import state_dict_to_variables
+
+    src = DewarpPipeline.create(
+        cfg, "cuda", generator=torch.Generator().manual_seed(SEED + 3))
+    paths = {"model_path": state["ema_snapshot"]}
+    sources = {"dit": state["ema_source"]}
+    for attr, field, name in (("geotr", "seg_model_path", "seg.msgpack"),
+                              ("line", "line_seg_model_path",
+                               "line_model2.msgpack"),
+                              ("seg", "new_seg_model_path", "seg_model.msgpack")):
+        sd = getattr(src, attr).state_dict()
+        paths[field] = os.path.join(state["workdir"], name)
+        save_variables(paths[field], state_dict_to_variables(sd))
+        sources[attr] = {k: v.cpu() for k, v in sd.items()}
+    del src
+    cfg = cfg.replace(paths=paths)
+    t0 = time.perf_counter()
+    pipe = DewarpPipeline.create(
+        cfg, "cuda", generator=torch.Generator().manual_seed(SEED + 10))
+    loaded = maybe_load_pipeline_weights(pipe, cfg)
+    log(f"[dataset] maybe_load_pipeline_weights: {loaded} in "
+        f"{time.perf_counter() - t0:.2f} s (pipeline built included); the "
+        f"DiT from train()'s {os.path.basename(state['ema_snapshot'])}")
+    if not all(loaded.values()) or len(loaded) != 4:
+        raise AssertionError(f"loaded {loaded}, expected 4/4")
+    for attr, want in sources.items():
+        got = getattr(pipe, attr).state_dict()
+        if set(got) != set(want):
+            raise AssertionError(f"{attr}: keys differ from the source")
+        bad = [k for k, v in got.items()
+               if not torch.equal(v.cpu(), want[k].to(v.dtype))]
+        if bad:
+            raise AssertionError(f"{attr}: {len(bad)} tensors differ from "
+                                 f"their source, e.g. {bad[:3]}")
+        dtypes = sorted({str(v.dtype)[6:] for v in got.values()})
+        log(f"[dataset]   {attr}: {len(got)} tensors equal to their source "
+            f"cast to {dtypes}")
+    return pipe
+
+
+def _native_check(pipe):
+    """unwarp_native on the card (K3) against the CPU (the twin), two
+    pages of different sizes in a 1536^2 canvas, one smooth flow per page
+    in the compute dtype; TF32 off, then on."""
+    from dvd_tpu_torch.evaluation.driver import unwarp_u8
+    from dvd_tpu_torch.evaluation.pipeline import native_grid, unwarp_native
+
+    p, hws = 1536, [(1500, 1100), (1200, 1536)]
+    gen = torch.Generator().manual_seed(SEED + 11)
+    pad = torch.zeros((2, p, p, 3), dtype=torch.uint8)
+    for i, (h, w) in enumerate(hws):
+        pad[i, :h, :w] = (_page(1, h, w, gen)[0] * 255).round().to(torch.uint8)
+    hw = torch.tensor(hws, dtype=torch.int32)
+    flow = _smooth_flow(2, pipe.cfg.model.image_size, gen).to(pipe.dtype)
+    cpu = (native_grid(hw, flow, p), unwarp_native(pad, hw, flow),
+           unwarp_u8(pad, hw, flow))
+    for tf32 in (False, True):
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        torch.backends.cudnn.allow_tf32 = tf32
+        try:
+            dev = [x.cuda() for x in (pad, hw, flow)]
+            grid = native_grid(dev[1], dev[2], p)
+            img = unwarp_native(*dev)
+            u8 = unwarp_u8(*dev)
+            torch.cuda.synchronize()
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        tag = f"TF32 {'on' if tf32 else 'off'}"
+        for axis, g, want in zip("xy", grid, cpu[0]):
+            compare(f"native grid {axis} card vs CPU, {tag}", g.cpu(), want,
+                    TOL["native_grid"])
+        for i, (h, w) in enumerate(hws):
+            compare(f"native image {h}x{w} card vs CPU, {tag}",
+                    img[i, :h, :w].cpu(), cpu[1][i, :h, :w],
+                    TOL["native_image"])
+            compare(f"native uint8 {h}x{w} card vs CPU, {tag}",
+                    u8[i, :h, :w].cpu().int(), cpu[2][i, :h, :w].int(),
+                    TOL["native_u8"])
+
+
+def _driver_run(pipe, n_pages, out_dir, label, card):
+    """run_benchmark on ``n_pages`` stand-in pages at the shipped batch,
+    counted; checks one finite coordinate map in [-1, 1] per page.
+    Returns the stats, the launches, the peak GiB and the dataset."""
+    from dvd_tpu_torch.evaluation.driver import run_benchmark
+
+    cfg = pipe.cfg
+    ds, sizes = _stand_in_dataset(n_pages, SEED + 12 + n_pages,
+                                  cfg.model.source_size)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    stats = run_benchmark(pipe, ds, out_dir,
+                          batch_size=cfg.data.eval_device_batch, seed=SEED,
+                          save_outputs=False, save_coord_maps=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    pred = os.path.join(out_dir, "dewarped_pred")
+    maps = sorted(os.listdir(pred))
+    if maps != sorted(f"coord_{p}.npy" for p in ds.paths) \
+            or stats["images"] != n_pages:
+        raise AssertionError(f"{n_pages} pages: {stats['images']} images, "
+                             f"{len(maps)} coordinate maps")
+    s = cfg.model.image_size
+    for name in maps:
+        m = np.load(os.path.join(pred, name))
+        if m.shape != (s, s, 2) or not np.isfinite(m).all() \
+                or np.abs(m).max() > 1:
+            raise AssertionError(f"{name}: shape {m.shape}, not finite or "
+                                 f"outside [-1, 1]")
+    sides = [s for hw in sizes for s in hw]
+    log(f"[dataset] {label}: {n_pages} pages, sides "
+        f"{min(sides)}-{max(sides)} px, canvas "
+        f"{ds.pad_to}^2, batch {cfg.data.eval_device_batch}: run_benchmark "
+        f"{wall:.2f} s wall; run_stats.json {json.dumps(stats)} (stand-in "
+        f"pages: the host's decode and resize are outside the window; {card})")
+    log(f"[dataset]   launches {counts}; peak device memory {peak:.2f} GiB; "
+        f"{len(maps)} coordinate maps, finite, within [-1, 1]")
+    return stats, counts, peak, ds
+
+
+def _stage_ms(pipe, ds, iters: int = 10) -> dict:
+    """ms per batch of each stage on the dataset's first batch, as
+    ``run_benchmark`` feeds it: mean of ``iters`` back-to-back calls
+    (CUDA events, so the device's waits on the host count), where
+    ``run_stats.json`` keeps one synchronised re-run of each."""
+    from dvd_tpu_torch.evaluation.driver import batch_generator, unwarp_u8
+
+    batch = next(iter(ds.batches(pipe.cfg.data.eval_device_batch)))
+    src = torch.from_numpy(np.clip(
+        np.asarray(batch["source_image"]) * 255.0 + 0.5, 0, 255
+    ).astype(np.uint8)).cuda().float() / 255.0
+    padded = torch.from_numpy(batch["source_padded"]).cuda()
+    hw = torch.from_numpy(batch["hw"]).cuda()
+    gen = batch_generator(pipe.device, SEED, 0)
+
+    def dewarp():
+        return pipe.sampling_impl(*pipe.build_conditioning(src), gen)
+
+    with torch.inference_mode():
+        flow = dewarp()
+        ms = {"conditioning": cuda_time_ms(
+                  lambda: pipe.build_conditioning(src), iters, 1),
+              "dewarp": cuda_time_ms(dewarp, iters, 1),
+              "unwarp": cuda_time_ms(lambda: unwarp_u8(padded, hw, flow),
+                                     iters, 1)}
+    ms["sample"] = ms.pop("dewarp") - ms["conditioning"]
+    return ms
+
+
+def phase_dataset(state):
+    from dvd_tpu_torch.config import default_config
+
+    cfg = default_config()
+    m = cfg.model
+    log(f"[dataset] {m.dit_variant} {m.compute_dtype} quantize={m.quantize}, "
+        f"{cfg.diffusion.diffusion_steps} DDIM steps x "
+        f"{cfg.diffusion.n_batch} hypotheses, batch "
+        f"{cfg.data.eval_device_batch} ({state['label']})")
+    pipe = _dataset_weights(state, cfg)
+    _native_check(pipe)
+    out = os.path.join(state["workdir"], "vis_hp")
+    stats, counts, peak, ds = _driver_run(pipe, 100, os.path.join(out, "p100"),
+                                          "main run", state["label"])
+    if min(counts[k] for k in ("attention", "conv3x3", "gather_bilinear")) <= 0:
+        raise AssertionError(f"a kernel of the path did not launch: {counts}")
+    st = stats["stage_seconds_per_batch"]
+    log(f"[dataset] steady state {stats['imgs_per_sec']} imgs/s over "
+        f"{stats['images'] - cfg.data.eval_device_batch} pages; per batch "
+        f"(one synchronised re-run of the last): conditioning "
+        f"{st['conditioning'] * 1e3:.1f} ms, sample {st['sample'] * 1e3:.1f} "
+        f"ms, unwarp {st['unwarp'] * 1e3:.1f} ms ({state['label']})")
+    ms = _stage_ms(pipe, ds)
+    log(f"[dataset] per batch, mean of 10 back-to-back calls each: "
+        f"conditioning {ms['conditioning']:.2f} ms, sample "
+        f"{ms['sample']:.2f} ms, unwarp {ms['unwarp']:.2f} ms "
+        f"({state['label']})")
+    stats6, _, _, _ = _driver_run(pipe, 6, os.path.join(out, "p6"),
+                                  "padded last batch", state["label"])
+    state["dataset"] = dict(stats=stats, launches=counts, peak_gib=peak,
+                            stage_ms=ms, stats6=stats6)
+
+
 # ---------------------------------------------------------------- main
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: chip_smoke.py runs on a GPU only")
     state: dict = {}
-    for phase in (phase_env, phase_kernels, phase_slice32, phase_shipped,
-                  phase_train32, phase_train):
-        phase(state)
+    with tempfile.TemporaryDirectory() as work:
+        state["workdir"] = work
+        for phase in (phase_env, phase_kernels, phase_slice32, phase_shipped,
+                      phase_train32, phase_train, phase_probe, phase_dataset):
+            phase(state)
     kernels = []
     for name, (src, replaces) in KERNELS.items():
         r = state["kernel_times"][(name, RECORD_CASE[name])]
+        launches = state["probe_launches"] if name == "gather2d" \
+            else state["train_launches"]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": state["train_launches"][name],
+            "launches": launches[name],
             "launches_serving": state["serve_launches"][name],
             "max_abs_err": state["kernel_errs"][name],
             "ms": r["ms"], "plain_ms": r["plain_ms"],

@@ -12,18 +12,25 @@ Layout mirrors ``dvd_tpu``:
   dataclasses, flag names and defaults)
 - ``ops``         resize, grid_sample and ``warp_const_src``; ``ops.kernels``
   wraps the CUDA kernels in ``csrc/`` (K1 attention, K2 conv3x3, K3
-  bilinear gather, K4 its coordinate gradient), each beside its plain
-  PyTorch twin, with autograd Functions for the training path
+  bilinear gather, K4 its coordinate gradient, K5 the exact integer 2-D
+  gather), each beside its plain PyTorch twin, with autograd Functions
+  for the training path
 - ``diffusion``   schedule tables, DDIM step, the sampling loop, the
   training rollout and losses
 - ``models``      DiT-S/2 + SATRN decoder, U2NetP/Seg, GeoTr mask branch,
   text-line UNet (NCHW; state_dict keys follow the flax parameter paths)
-- ``evaluation``  ``DewarpPipeline`` and ``unwarp_fixed``
+- ``evaluation``  ``DewarpPipeline``, ``unwarp_fixed`` and
+  ``unwarp_native``; the batched dataset driver ``run_benchmark``
+- ``data``        ``BenchmarkDataset``: pages of any size on one canvas
 - ``training``    the train state and step (AdamW, clip, EMA, samplers),
-  the training loop ``train_loop.train``, checkpoints, and the
-  JAX-variables -> state_dict bridge
-- ``utils``       coordinate grids, the key-value logger
-- ``cli``         ``python -m dvd_tpu_torch.cli.run_sampling --image ...``
+  the training loop ``train_loop.train``, checkpoints and flax
+  ``.msgpack`` weight files, the converter of the reference's torch
+  checkpoints, and the flax-variables <-> state_dict bridge
+- ``utils``       coordinate grids, the key-value logger, flax's msgpack
+  format without flax
+- ``cli``         ``run_sampling`` (``--image``, ``--eval_dataset``) and
+  ``convert_ckpt``
+- ``tools``       ``gather_probe``, the K5 probe
 
 Importing this package imports ``torch`` and never ``jax`` or any module
 of ``dvd_tpu``.

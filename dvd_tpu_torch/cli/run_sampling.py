@@ -1,12 +1,21 @@
-"""Single-image dewarp with the PyTorch/CUDA port (the counterpart of
-``run_sampling.py --image``).
+"""Dewarp with the PyTorch/CUDA port (the counterpart of ``run_sampling.py``).
 
-    python -m dvd_tpu_torch.cli.run_sampling --image page.png --out out.png \\
-        [--seed 42] [--set model.compute_dtype=float32] [--device cuda]
+    # one photo -> the unwarped image + <out>.coords.npy (the (S, S, 2) flow)
+    python -m dvd_tpu_torch.cli.run_sampling --image page.png --out out.png
 
-Writes the unwarped image and ``<out>.coords.npy`` (the (S, S, 2) flow).
-Weights are drawn from ``--seed`` (loading converted checkpoints is not
-ported yet).  PIL is imported only by ``main`` to read and write files;
+    # a directory of photos at native resolution -> vis_hp/{ds}/{name}/
+    #   dewarped_pred/warped_*.png + run_stats.json
+    python -m dvd_tpu_torch.cli.run_sampling --eval_dataset DIR \
+        --eval_dataset_name docunet --name exp1 [--batch 4] [--profile DIR]
+
+    common: [--seed 42] [--set model.compute_dtype=float32] [--device cuda]
+
+Weights are drawn from a seed (``--seed`` for ``--image``,
+``train.seed`` for a dataset, as ``run_sampling.py``), then replaced by the
+converted ``.msgpack`` files found at ``cfg.paths`` (``--set
+paths.model_path=...``; see ``cli/convert_ckpt.py``); the CLI prints which
+were loaded.  The corruption sweep (``--corruption``) is not ported yet.
+PIL and cv2 are imported only to read and write files;
 :func:`dewarp_image` takes and returns numpy arrays.
 """
 
@@ -14,6 +23,7 @@ from __future__ import annotations
 
 import argparse
 import ast
+import dataclasses
 import os
 from typing import Optional, Tuple
 
@@ -23,6 +33,7 @@ import torch.nn.functional as F
 
 from dvd_tpu_torch.config import DvDConfig, default_config
 from dvd_tpu_torch.evaluation.pipeline import DewarpPipeline, unwarp_fixed
+from dvd_tpu_torch.training.checkpoint import maybe_load_pipeline_weights
 
 
 def parse_overrides(pairs) -> dict:
@@ -66,16 +77,30 @@ def dewarp_image(pipe: DewarpPipeline, image: np.ndarray, seed: int,
 def build_pipeline(cfg: DvDConfig, seed: int,
                    device: str = "cuda") -> DewarpPipeline:
     """Pipeline with weights drawn from ``seed`` (on the CPU, so the same
-    seed gives the same weights on any device)."""
+    seed gives the same weights on any device); the caller loads any
+    converted files over them (:func:`maybe_load_pipeline_weights`)."""
     return DewarpPipeline.create(
         cfg, device, generator=torch.Generator().manual_seed(seed))
 
 
 def main(argv: Optional[list] = None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--image", required=True, help="input photo")
+    ap.add_argument("--image", default=None,
+                    help="dewarp one photo instead of a dataset")
     ap.add_argument("--out", default=None,
-                    help="output path (default vis_hp/single/warped_<name>)")
+                    help="output path for --image (default "
+                         "vis_hp/single/warped_<name>)")
+    ap.add_argument("--eval_dataset", default=None,
+                    help="directory of photos to dewarp at native size")
+    ap.add_argument("--eval_dataset_name", default=None)
+    ap.add_argument("--batch", type=int, default=None,
+                    help="pages per batch (data.eval_device_batch)")
+    ap.add_argument("--name", default="default")
+    ap.add_argument("--profile", default=None, metavar="DIR",
+                    help="write a torch.profiler trace of the dataset run's "
+                         "steady state to DIR")
+    ap.add_argument("--corruption", default=None,
+                    help="corruption-robustness sweep (not ported yet)")
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--set", action="append", dest="overrides",
                     metavar="K=V", help="config override, e.g. "
@@ -84,19 +109,47 @@ def main(argv: Optional[list] = None) -> None:
                     help="torch device (default cuda; 'cpu' runs the plain "
                          "twins of the kernels)")
     args = ap.parse_args(argv)
+    if args.corruption:
+        raise NotImplementedError(
+            "the corruption sweep (--corruption) is not ported yet "
+            "(ROADMAP.md Queue 1 item 19)")
 
-    from PIL import Image
+    over = parse_overrides(args.overrides)
+    data = over.setdefault("data", {})
+    if args.eval_dataset:
+        data["eval_dataset"] = args.eval_dataset
+    if args.eval_dataset_name:
+        data["eval_dataset_name"] = args.eval_dataset_name
+    if args.batch:
+        data["eval_device_batch"] = args.batch
+    cfg = dataclasses.replace(default_config().replace(**over),
+                              name=args.name)
 
-    cfg = default_config().replace(**parse_overrides(args.overrides))
-    pipe = build_pipeline(cfg, args.seed, args.device)
-    ori = np.asarray(Image.open(args.image).convert("RGB"))
-    out, flow = dewarp_image(pipe, ori, args.seed)
-    out_path = args.out or os.path.join(
-        "vis_hp", "single", f"warped_{os.path.basename(args.image)}")
-    os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
-    Image.fromarray(np.clip(out, 0, 255).astype(np.uint8)).save(out_path)
-    np.save(out_path + ".coords.npy", flow)
-    print(f"wrote {out_path} (+ .coords.npy)")
+    if args.image:
+        if not os.path.isfile(args.image):
+            ap.error(f"--image: no such file: {args.image}")
+        from PIL import Image
+
+        pipe = build_pipeline(cfg, args.seed, args.device)
+        print(f"loaded weights: {maybe_load_pipeline_weights(pipe, cfg)}")
+        ori = np.asarray(Image.open(args.image).convert("RGB"))
+        out, flow = dewarp_image(pipe, ori, args.seed)
+        out_path = args.out or os.path.join(
+            "vis_hp", "single", f"warped_{os.path.basename(args.image)}")
+        os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
+        Image.fromarray(np.clip(out, 0, 255).astype(np.uint8)).save(out_path)
+        np.save(out_path + ".coords.npy", flow)
+        print(f"wrote {out_path} (+ .coords.npy)")
+        return
+    if not cfg.data.eval_dataset:
+        ap.error("give --image or --eval_dataset")
+
+    from dvd_tpu_torch.evaluation.driver import run_from_config
+
+    stats = run_from_config(cfg, seed=args.seed, device=args.device,
+                            profile_dir=args.profile)
+    print(f"Elapsed: {stats['images']} images, {stats['imgs_per_sec']} "
+          f"imgs/sec (first batch {stats['compile_seconds']}s)")
 
 
 if __name__ == "__main__":

@@ -30,7 +30,7 @@ import torch
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("attention.cu", "conv3x3.cu", "grid_sample.cu")
+SOURCES = ("attention.cu", "conv3x3.cu", "grid_sample.cu", "gather_probe.cu")
 HEADERS = ("common.cuh",)
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 LIB_NAME = "libdvd_kernels.so"
@@ -51,6 +51,7 @@ SIGNATURES = {
     "dvd_gather_bilinear": [_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _I, _P],
     "dvd_gather_bilinear_grad": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                  _L, _L, _I, _P],
+    "dvd_gather2d": [_P, _P, _P, _P, _I, _I, _L, _P],
 }
 
 

@@ -16,10 +16,12 @@ are checked against the autograd of the plain versions.
 import pytest
 import torch
 
+from dvd_tpu_torch.evaluation.pipeline import native_grid, unwarp_native
 from dvd_tpu_torch.ops.grid_sample import unnormalize, warp_const_src
 from dvd_tpu_torch.ops.kernels.attention import HEAD_DIMS, attention, attention_ref
 from dvd_tpu_torch.ops.kernels.conv3x3 import (conv3x3, conv3x3_ref,
                                                conv3x3_trainable)
+from dvd_tpu_torch.ops.kernels.gather2d import gather2d, gather2d_ref
 from dvd_tpu_torch.ops.kernels.grid_sample import (gather_bilinear,
                                                    gather_bilinear_grad,
                                                    gather_bilinear_grad_ref,
@@ -213,3 +215,46 @@ def test_conv3x3_function_grads(dev, dtype, bar, dilation):
     want = _grads(lambda xx, ww, bb: conv3x3_ref(
         xx, ww, torch.ones_like(bb), bb, dilation, False), [x, w, b], ct)
     _close_grads(got, want, bar)
+
+
+@pytest.mark.parametrize("hw,mn", [((64, 256), (8, 128)), ((1, 1), (1, 1)),
+                                   ((33, 130), (17, 257)), ((2048, 3), (5, 3))])
+def test_gather2d_kernel(dev, hw, mn):
+    """K5 equals its twin bit for bit, out-of-range indices (0.0) included."""
+    g = _gen()
+    img = torch.randn(hw, generator=g).to(dev)
+    y = torch.randint(-2, hw[0] + 2, mn, generator=g, dtype=torch.int32).to(dev)
+    x = torch.randint(-2, hw[1] + 2, mn, generator=g, dtype=torch.int32).to(dev)
+    before = gather2d.launches
+    got = gather2d(img, y, x)
+    assert gather2d.launches == before + 1
+    assert torch.equal(got, gather2d_ref(img, y, x))
+    with pytest.raises(TypeError):                          # int64 indices
+        gather2d(img, y.long(), x.long())
+    with pytest.raises(ValueError):                         # strided
+        gather2d(torch.randn(4, 6, device=dev)[:, ::2], y, x)
+
+
+@pytest.mark.parametrize("tf32", [False, True])
+def test_unwarp_native_on_the_card(dev, tf32):
+    """unwarp_native through K3 against the CPU (twin): two pages of
+    different sizes in one canvas, a bf16 flow; the grid stays f32 with
+    TF32 on."""
+    g = _gen()
+    hw = torch.tensor([[300, 211], [257, 320]], dtype=torch.int32)
+    pad = (torch.rand(2, 320, 320, 3, generator=g) * 255).round().to(torch.uint8)
+    flow = ((torch.rand(2, 64, 64, 2, generator=g) - 0.5) * 0.1).to(torch.bfloat16)
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.backends.cudnn.allow_tf32 = tf32
+    try:
+        got = unwarp_native(pad.to(dev), hw.to(dev), flow.to(dev)).cpu()
+        grid = native_grid(hw.to(dev), flow.to(dev), 320)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    want = unwarp_native(pad, hw, flow)
+    for a, b in zip(grid, native_grid(hw, flow, 320)):
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-5)
+    for i, (h, w) in enumerate(hw.tolist()):
+        torch.testing.assert_close(got[i, :h, :w], want[i, :h, :w],
+                                   rtol=0, atol=0.5)

@@ -30,6 +30,7 @@ from dvd_tpu_torch.ops.grid_sample import grid_sample, warp
 from dvd_tpu_torch.ops.kernels import build
 from dvd_tpu_torch.ops.kernels.attention import attention, attention_ref
 from dvd_tpu_torch.ops.kernels.conv3x3 import conv3x3, conv3x3_ref
+from dvd_tpu_torch.ops.kernels.gather2d import gather2d, gather2d_ref
 from dvd_tpu_torch.ops.kernels.grid_sample import (gather_bilinear,
                                                    gather_bilinear_ref)
 from dvd_tpu_torch.ops.resize import resize_bilinear
@@ -139,6 +140,12 @@ KERNEL_CASES = {
                         lambda g: (torch.rand(1, 2, 6, 5, generator=g),
                                    torch.rand(1, 3, 4, generator=g) * 7 - 1,
                                    torch.rand(1, 3, 4, generator=g) * 8 - 1)),
+    "gather2d": (gather2d, gather2d_ref,
+                 lambda g: (torch.rand(6, 5, generator=g),
+                            torch.randint(-1, 7, (3, 4), generator=g,
+                                          dtype=torch.int32),
+                            torch.randint(-1, 6, (3, 4), generator=g,
+                                          dtype=torch.int32))),
 }
 
 
@@ -169,24 +176,19 @@ def test_nvcc_command_targets_sm90a(tmp_path):
 
 
 def test_port_imports_no_jax_flax_pil():
-    """``import dvd_tpu_torch`` and ``chip_smoke`` (and the modules the
-    serving and training paths use) load neither the JAX package
-    ``dvd_tpu`` (not even a pure-Python module of it), JAX, flax nor PIL."""
+    """``import dvd_tpu_torch`` and ``chip_smoke`` (and every module of the
+    port) load neither the JAX package ``dvd_tpu`` (not even a
+    pure-Python module of it), JAX, flax, msgpack, ml_dtypes nor PIL."""
     code = (
         "import sys\n"
+        "import pkgutil\n"
         "import dvd_tpu_torch, chip_smoke\n"
-        "import dvd_tpu_torch.config\n"
-        "import dvd_tpu_torch.evaluation.pipeline\n"
-        "import dvd_tpu_torch.cli.run_sampling\n"
-        "import dvd_tpu_torch.training.convert\n"
-        "import dvd_tpu_torch.diffusion.losses\n"
-        "import dvd_tpu_torch.training.resample\n"
-        "import dvd_tpu_torch.training.train_state\n"
-        "import dvd_tpu_torch.training.train_loop\n"
-        "import dvd_tpu_torch.training.checkpoint\n"
-        "import dvd_tpu_torch.utils.logger\n"
+        "for m in pkgutil.walk_packages(dvd_tpu_torch.__path__, "
+        "'dvd_tpu_torch.'):\n"
+        "    __import__(m.name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('dvd_tpu', 'jax', 'jaxlib', 'flax', 'PIL'))\n"
+        "('dvd_tpu', 'jax', 'jaxlib', 'flax', 'msgpack', 'ml_dtypes', "
+        "'PIL'))\n"
         "assert not bad, bad\n"
         "print('clean')\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))

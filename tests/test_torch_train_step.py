@@ -26,6 +26,7 @@ from dvd_tpu.training import train_state as jts
 from dvd_tpu_torch.config import default_config
 from dvd_tpu_torch.diffusion.schedule import make_schedule
 from dvd_tpu_torch.training import checkpoint as ckpt
+from dvd_tpu_torch.training.convert import variables_to_state_dict
 from dvd_tpu_torch.training.train_loop import train
 from dvd_tpu_torch.training.train_state import (create_train_state,
                                                 make_optimizer,
@@ -163,11 +164,14 @@ def test_train_writes_checkpoint_and_ema(three_steps):
     ws, state = three_steps
     run = os.path.join(ws, "default")
     assert state.step == 3
-    assert sorted(os.listdir(run)) == ["ema_0.9999_000003.pt",
+    assert sorted(os.listdir(run)) == ["ema_0.9999_000003.msgpack",
                                        "state_00000003.pt"]
-    ema = torch.load(os.path.join(run, "ema_0.9999_000003.pt"),
-                     weights_only=True)
-    assert set(ema) == set(state.model.state_dict())
+    ema = ckpt.load_variables(os.path.join(run, "ema_0.9999_000003.msgpack"))
+    sd, report = variables_to_state_dict(ema, state.model)
+    assert report == ([], [], [])
+    for k, v in state.model.state_dict().items():
+        want = state.ema_params[0].get(k, v)
+        assert torch.equal(sd[k], want.cpu()), k
     assert os.path.isfile(os.path.join(ws, "train_default", "progress.csv"))
 
 
