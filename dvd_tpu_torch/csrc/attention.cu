@@ -1,19 +1,17 @@
-// K1: non-causal, unmasked softmax(q k^T * scale) v, forward only.
+// K1, float32: non-causal, unmasked softmax(q k^T * scale) v, forward only.
 //
 // Replaces the TPU kernel dvd_tpu/ops/pallas/attention.py:fused_attention
-// (_kernel).  Contract: q (B, H, Tq, Dh), k and v (B, H, Tk, Dh), float32 or
-// bfloat16, each with its own (b, h, t) strides and a unit stride on Dh, so
-// the split_heads views of a (B, T, H*Dh) projection are read in place.
-// Logits, softmax and the P.V accumulation are float32; the output is
-// written in q's dtype.  `scale` is an argument (1/8 in the DiT, 1/16 in the
-// SATRN decoder), not 1/sqrt(Dh).
+// (_kernel) for float32 inputs (the f32 serving slice and training step);
+// bfloat16 goes to the tensor-core kernel in attention_wgmma.cu.  Contract:
+// q (B, H, Tq, Dh), k and v (B, H, Tk, Dh), each with its own (b, h, t)
+// strides and a unit stride on Dh, so the split_heads views of a
+// (B, T, H*Dh) projection are read in place.  `scale` is an argument (1/8 in
+// the DiT, 1/16 in the SATRN decoder), not 1/sqrt(Dh).
 //
-// What bounds it on the H100: FLOPs.  At the slice's shapes, (8, 6, 1024, 64)
-// is 12.9 GFLOP against 6 MB of bf16 traffic and (8, 6, 1024, 256) is
-// 51.5 GFLOP against 25 MB -- both far above the card's ~295 FLOP/byte
-// ridge.  This first version runs the products on the CUDA cores in float32
-// (67 TFLOP/s peak), not on the tensor cores (989 TFLOP/s bf16 via wgmma):
-// right first; tensor cores are the next step.
+// What bounds it on the H100: FLOPs.  (8, 6, 1024, 64) is 12.9 GFLOP and
+// (8, 6, 1024, 256) 51.5 GFLOP, against 12 and 50 MB of f32 traffic.  The
+// products run on the CUDA cores in float32 (67 TFLOP/s peak): TF32 on the
+// tensor cores would miss the f32 paths' 1e-4 checks against the CPU.
 //
 // Design: the Pallas kernel keeps a whole head's K and V resident in VMEM
 // (1 MB at Dh 256); that does not fit an SM's 227 KB of shared memory.  So
@@ -21,9 +19,7 @@
 // rows staged through shared memory, and an online softmax with a running
 // max and sum per row in float32 (exp2 of pre-scaled logits).  Ragged Tk is
 // masked (logit -inf), ragged Tq is not written; the TPU kernel's T%8
-// assertion does not carry over.  p is kept in float32 before P.V; the TPU
-// kernel casts the normalised p to v's dtype first, which for bf16 inputs
-// differs by at most bf16 rounding of p (relative 2^-9 per term).
+// assertion does not carry over.
 //
 // Threads: 256 = 16 (ty) x 16 (tx).  Thread (ty, tx) owns rows ty*4..+3 and
 // columns tx + 16*c of both the S tile and the O accumulator, so shared
@@ -58,11 +54,11 @@ constexpr size_t smem_floats() {
 // and 64 * k for the SATRN decoder over k = 2, 3, 4 streams.
 #define DVD_FOR_EACH_DH(X) X(16) X(64) X(128) X(192) X(256)
 
-template <typename T, int DH>
+template <int DH>
 __global__ void __launch_bounds__(kThreads) attention_fwd_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ o, int H, int Tq, int Tk, Strides qs, Strides ks,
-    Strides vs, Strides os, float scale_log2) {
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, float* __restrict__ o, int H, int Tq, int Tk,
+    Strides qs, Strides ks, Strides vs, Strides os, float scale_log2) {
   constexpr int BK = block_k<DH>();
   constexpr int SC = BK / 16;  // S columns per thread
   constexpr int OC = DH / 16;  // O columns per thread
@@ -80,16 +76,16 @@ __global__ void __launch_bounds__(kThreads) attention_fwd_kernel(
   const int bh = blockIdx.y;
   const int b = bh / H, h = bh % H;
   const int q0 = blockIdx.x * kBQ;
-  const T* qb = q + b * qs.b + h * qs.h;
-  const T* kb = k + b * ks.b + h * ks.h;
-  const T* vb = v + b * vs.b + h * vs.h;
-  T* ob = o + b * os.b + h * os.h;
+  const float* qb = q + b * qs.b + h * qs.h;
+  const float* kb = k + b * ks.b + h * ks.h;
+  const float* vb = v + b * vs.b + h * vs.h;
+  float* ob = o + b * os.b + h * os.h;
 
   for (int i = tid; i < kBQ * DH; i += kThreads) {
     const int r = i / DH, d = i % DH;
     const int t = q0 + r;
     Qs[r * (DH + 1) + d] =
-        t < Tq ? dvd::to_f32(qb[t * qs.t + d]) * scale_log2 : 0.f;
+        t < Tq ? qb[t * qs.t + d] * scale_log2 : 0.f;
   }
   if (tid < kBQ) {
     row_m[tid] = -INFINITY;
@@ -107,8 +103,8 @@ __global__ void __launch_bounds__(kThreads) attention_fwd_kernel(
       const int r = i / DH, d = i % DH;
       const int t = k0 + r;
       const bool ok = t < Tk;
-      Ks[r * (DH + 1) + d] = ok ? dvd::to_f32(kb[t * ks.t + d]) : 0.f;
-      Vs[r * DH + d] = ok ? dvd::to_f32(vb[t * vs.t + d]) : 0.f;
+      Ks[r * (DH + 1) + d] = ok ? kb[t * ks.t + d] : 0.f;
+      Vs[r * DH + d] = ok ? vb[t * vs.t + d] : 0.f;
     }
     __syncthreads();
 
@@ -196,34 +192,33 @@ __global__ void __launch_bounds__(kThreads) attention_fwd_kernel(
     const float inv = 1.f / row_l[row];
 #pragma unroll
     for (int c = 0; c < OC; ++c)
-      ob[t * os.t + tx + 16 * c] = dvd::from_f32<T>(acc[r][c] * inv);
+      ob[t * os.t + tx + 16 * c] = acc[r][c] * inv;
   }
 }
 
-template <typename T, int DH>
+template <int DH>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
            int Tq, int Tk, Strides qs, Strides ks, Strides vs, Strides os,
            float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_floats<DH>() * sizeof(float);
-  auto kern = attention_fwd_kernel<T, DH>;
+  auto kern = attention_fwd_kernel<DH>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(dvd::ceil_div(Tq, kBQ), B * H);
   const float log2e = 1.4426950408889634f;
-  kern<<<grid, kThreads, smem, stream>>>((const T*)q, (const T*)k, (const T*)v,
-                                         (T*)o, H, Tq, Tk, qs, ks, vs, os,
-                                         scale * log2e);
+  kern<<<grid, kThreads, smem, stream>>>((const float*)q, (const float*)k,
+                                         (const float*)v, (float*)o, H, Tq, Tk,
+                                         qs, ks, vs, os, scale * log2e);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
 int dispatch_dh(int Dh, const void* q, const void* k, const void* v, void* o,
                 int B, int H, int Tq, int Tk, Strides qs, Strides ks,
                 Strides vs, Strides os, float scale, cudaStream_t s) {
   switch (Dh) {
 #define DVD_CASE(D) \
-    case D: return launch<T, D>(q, k, v, o, B, H, Tq, Tk, qs, ks, vs, os, scale, s);
+    case D: return launch<D>(q, k, v, o, B, H, Tq, Tk, qs, ks, vs, os, scale, s);
     DVD_FOR_EACH_DH(DVD_CASE)
 #undef DVD_CASE
     default: return (int)cudaErrorInvalidValue;
@@ -250,15 +245,11 @@ extern "C" int dvd_attention_fwd(const void* q, const void* k, const void* v,
                                  long long v_sb, long long v_sh, long long v_st,
                                  long long o_sb, long long o_sh, long long o_st,
                                  float scale, int dtype, void* stream) {
-  if (B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0 || B * H > 65535)
+  if (dtype != dvd::kFloat32 || B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0 ||
+      B * H > 65535)
     return (int)cudaErrorInvalidValue;
   const Strides qs{q_sb, q_sh, q_st}, ks{k_sb, k_sh, k_st};
   const Strides vs{v_sb, v_sh, v_st}, os{o_sb, o_sh, o_st};
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == dvd::kFloat32)
-    return dispatch_dh<float>(Dh, q, k, v, o, B, H, Tq, Tk, qs, ks, vs, os, scale, s);
-  if (dtype == dvd::kBFloat16)
-    return dispatch_dh<__nv_bfloat16>(Dh, q, k, v, o, B, H, Tq, Tk, qs, ks, vs, os,
-                                      scale, s);
-  return (int)cudaErrorInvalidValue;
+  return dispatch_dh(Dh, q, k, v, o, B, H, Tq, Tk, qs, ks, vs, os, scale, s);
 }

@@ -1,11 +1,17 @@
-"""K1: fused attention forward (``csrc/attention.cu``) and its plain twin.
+"""K1: fused attention forward and its plain twin.
 
-Replaces ``dvd_tpu/ops/pallas/attention.py:fused_attention``.  The
-wrapper reads q/k/v through their (b, h, t) strides, so the non-contiguous
-``split_heads`` views go to the kernel without a copy; only the last (Dh)
-dimension must be contiguous.  The output is allocated as a (B, T, H, Dh)
-buffer and returned as its (B, H, T, Dh) view, so ``merge_heads`` is a
-free reshape.
+Replaces ``dvd_tpu/ops/pallas/attention.py:fused_attention``.  CUDA
+tensors go by dtype: bf16 to the tensor-core kernel
+(``csrc/attention_wgmma.cu``, counted in ``attention.launches_wgmma``),
+f32 to the CUDA-core kernel (``csrc/attention.cu``,
+``attention.launches_f32``); ``attention.launches`` counts both.  The
+wrapper reads q/k/v through their (b, h, t) strides, so the
+non-contiguous ``split_heads`` views go to the kernel without a copy; the
+last (Dh) dimension must be contiguous, and for bf16 each base pointer
+16-byte aligned and each stride a multiple of 8 elements (the kernel's
+16-byte async copies).  The output is allocated as a (B, T, H, Dh) buffer
+and returned as its (B, H, T, Dh) view, so ``merge_heads`` is a free
+reshape.
 
 When a gradient is needed, ``attention`` goes through an autograd
 Function: forward K1, backward ``attention_bwd``, the f32 recompute of
@@ -23,9 +29,12 @@ import torch
 from dvd_tpu_torch.ops.kernels import build
 from dvd_tpu_torch.utils.dtypes import at_least_f32
 
-# head dims with a kernel (csrc/attention.cu DVD_FOR_EACH_DH): the mini
+# head dims with a kernel (DVD_FOR_EACH_DH in both sources): the mini
 # test DiT (16), DiT-S/B/L (64), the SATRN decoder over 2-4 streams (64 * k)
 HEAD_DIMS = (16, 64, 128, 192, 256)
+# CUDA entry by dtype
+_ENTRIES = {torch.float32: "dvd_attention_fwd",
+            torch.bfloat16: "dvd_attention_fwd_wgmma"}
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -43,7 +52,7 @@ def _check(q, k, v):
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError(f"attention: tensors on {q.device}, {k.device}, "
                          f"{v.device}; the kernel takes one CUDA device")
-    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in build.DTYPE_CODES:
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _ENTRIES:
         raise TypeError(f"attention: dtypes {q.dtype}, {k.dtype}, {v.dtype}")
     if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
         raise ValueError(f"attention: shapes {tuple(q.shape)}, "
@@ -55,6 +64,14 @@ def _check(q, k, v):
         raise ValueError(f"attention: head dim {dh} not in {HEAD_DIMS}")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("attention: the head dim must be contiguous")
+    if q.dtype == torch.bfloat16:
+        for name, t in zip("qkv", (q, k, v)):
+            if t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3]):
+                raise ValueError(
+                    f"attention: bf16 {name} at byte offset "
+                    f"{t.data_ptr() % 16} with strides {t.stride()}; the "
+                    "kernel takes 16-byte aligned bases and strides that "
+                    "are multiples of 8")
 
 
 def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -108,13 +125,20 @@ def _forward(q, k, v, scale: float) -> torch.Tensor:
                       device=q.device).transpose(1, 2)
     kl = build.load_library()
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
-    err = kl.lib.dvd_attention_fwd(
+    entry = _ENTRIES[q.dtype]
+    err = getattr(kl.lib, entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         b, h, tq, tk, dh, *strides, scale, build.DTYPE_CODES[q.dtype],
         build.stream_ptr(q))
-    build.check_launch(kl, err, "dvd_attention_fwd")
+    build.check_launch(kl, err, entry)
     attention.launches += 1
+    if q.dtype == torch.bfloat16:
+        attention.launches_wgmma += 1
+    else:
+        attention.launches_f32 += 1
     return out
 
 
 attention.launches = 0
+attention.launches_wgmma = 0
+attention.launches_f32 = 0

@@ -30,7 +30,8 @@ import torch
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("attention.cu", "conv3x3.cu", "grid_sample.cu", "gather_probe.cu")
+SOURCES = ("attention.cu", "attention_wgmma.cu", "conv3x3.cu", "grid_sample.cu",
+           "gather_probe.cu")
 HEADERS = ("common.cuh",)
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 LIB_NAME = "libdvd_kernels.so"
@@ -42,11 +43,15 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
+# K1's two entries (f32 on the CUDA cores, bf16 through wgmma) share one
+# argument list: pointers, B, H, Tq, Tk, Dh, (b, h, t) strides of q, k, v
+# and o, scale, dtype code, stream
+_ATTENTION = [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+              _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _F, _I, _P]
 # C entry points: name -> argtypes (every pointer and the stream as c_void_p)
 SIGNATURES = {
-    "dvd_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
-                          _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
-                          _F, _I, _P],
+    "dvd_attention_fwd": _ATTENTION,
+    "dvd_attention_fwd_wgmma": _ATTENTION,
     "dvd_conv3x3": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "dvd_gather_bilinear": [_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _I, _P],
     "dvd_gather_bilinear_grad": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
@@ -100,8 +105,10 @@ def _bind(path: Path) -> ctypes.CDLL:
     lib.dvd_error_string.argtypes = [_I]
     lib.dvd_error_string.restype = ctypes.c_char_p
     lib.dvd_attention_smem_bytes.argtypes = [_I]
+    lib.dvd_attention_wgmma_smem_bytes.argtypes = [_I]
     lib.dvd_conv3x3_smem_bytes.argtypes = [_I, _I]
-    for fn in (lib.dvd_attention_smem_bytes, lib.dvd_conv3x3_smem_bytes):
+    for fn in (lib.dvd_attention_smem_bytes, lib.dvd_attention_wgmma_smem_bytes,
+               lib.dvd_conv3x3_smem_bytes):
         fn.restype = _L
     return lib
 

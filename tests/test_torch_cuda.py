@@ -43,26 +43,58 @@ def _gen():
     return torch.Generator().manual_seed(0)
 
 
+def _routes():
+    return attention.launches_wgmma, attention.launches_f32
+
+
 @pytest.mark.parametrize("dh", HEAD_DIMS)
 @pytest.mark.parametrize("tq,tk", [(64, 64), (37, 100), (130, 7)])
 def test_attention_kernel(dev, dh, tq, tk):
+    """f32: the CUDA-core kernel."""
     g = _gen()
     q = torch.randn(2, 3, tq, dh, generator=g).to(dev)
     k = torch.randn(2, 3, tk, dh, generator=g).to(dev)
     v = torch.randn(2, 3, tk, dh, generator=g).to(dev)
-    before = attention.launches
+    before, (wgmma, f32) = attention.launches, _routes()
     got = attention(q, k, v, 0.3)
     assert attention.launches == before + 1
+    assert _routes() == (wgmma, f32 + 1)
     torch.testing.assert_close(got, attention_ref(q, k, v, 0.3),
                                rtol=1e-4, atol=1e-4)
 
 
-def test_attention_strided_bf16(dev):
+# ragged lengths: Tk below one 64-row K/V tile (7, 37), not a multiple of 8
+# (7, 100, 1000), Tq over one 128-row block (130, 200, 1000)
+@pytest.mark.parametrize("dh", HEAD_DIMS)
+@pytest.mark.parametrize("tq,tk", [(64, 64), (37, 100), (130, 7), (200, 37),
+                                   (1000, 1000)])
+def test_attention_wgmma_kernel(dev, dh, tq, tk):
+    """bf16: the tensor-core kernel, against the twin on the same bf16
+    inputs; they differ where p rounds to bf16 (the twin rounds the
+    normalised p, the kernel p relative to the running max)."""
+    g = _gen()
+    q = torch.randn(2, 3, tq, dh, generator=g).to(dev, torch.bfloat16)
+    k = torch.randn(2, 3, tk, dh, generator=g).to(dev, torch.bfloat16)
+    v = torch.randn(2, 3, tk, dh, generator=g).to(dev, torch.bfloat16)
+    before, (wgmma, f32) = attention.launches, _routes()
+    got = attention(q, k, v, 0.3)
+    assert attention.launches == before + 1
+    assert _routes() == (wgmma + 1, f32)
+    want = attention_ref(q, k, v, 0.3)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=2e-2 * max(1.0, want.float().abs().max().item()))
+
+
+@pytest.mark.parametrize("dh", [64, 256])
+def test_attention_strided_bf16(dev, dh):
     """split_heads views (strided) in bf16; output in q's dtype."""
     g = _gen()
-    x = torch.randn(2, 50, 3, 4, 64, generator=g).to(dev, torch.bfloat16)
+    x = torch.randn(2, 50, 3, 4, dh, generator=g).to(dev, torch.bfloat16)
     q, k, v = (x[:, :, i].transpose(1, 2) for i in range(3))
+    wgmma = attention.launches_wgmma
     got = attention(q, k, v, 1 / 8)
+    assert attention.launches_wgmma == wgmma + 1
     assert got.dtype == torch.bfloat16 and got.shape == q.shape
     torch.testing.assert_close(got.float(), attention_ref(q, k, v, 1 / 8).float(),
                                rtol=0, atol=2e-2)
@@ -105,6 +137,13 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     g = _gen()
     q = torch.randn(1, 2, 8, 24, generator=g).to(dev)      # Dh 24: no kernel
     with pytest.raises(ValueError):
+        attention(q, q, q)
+    buf = torch.randn(1 + 2 * 8 * 64, generator=g).to(dev, torch.bfloat16)
+    q = buf[1:].view(1, 2, 8, 64)                           # off by one element
+    with pytest.raises(ValueError):
+        attention(q, q, q)
+    q = torch.randn(1, 2, 8, 65, generator=g).to(dev, torch.bfloat16)[..., :64]
+    with pytest.raises(ValueError):                         # row stride 65
         attention(q, q, q)
     x = torch.randn(1, 4, 8, 8, generator=g).to(dev)
     w = torch.randn(4, 4, 3, 3, generator=g).to(dev)
@@ -188,9 +227,11 @@ def test_attention_function_grads(dev, dtype, bar, dh):
     q, k, v = (torch.randn(2, 3, t_, dh, generator=g).to(dev, dtype)
                for t_ in (50, 70, 70))
     ct = torch.randn(2, 3, 50, dh, generator=g).to(dev, dtype)
-    before = attention.launches
+    before, (wgmma, f32) = attention.launches, _routes()
     got = _grads(lambda *a: attention(*a, 0.1), [q, k, v], ct)
     assert attention.launches == before + 1
+    assert _routes() == ((wgmma + 1, f32) if dtype == torch.bfloat16
+                         else (wgmma, f32 + 1))
     _close_grads(got, _grads(lambda *a: attention_ref(*a, 0.1), [q, k, v], ct),
                  bar)
 

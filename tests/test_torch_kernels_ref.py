@@ -1,6 +1,7 @@
 """Each kernel's plain twin (the port's CPU path and the kernel's oracle on
 the card) against the TPU Pallas kernel it replaces, run in interpret mode
-as the JAX package's own tests run it.  f32; tolerances per case."""
+as the JAX package's own tests run it.  f32, and attention also in bf16,
+the dtype it is served in; tolerances per case."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -17,12 +18,15 @@ from dvd_tpu_torch.ops.kernels.grid_sample import gather_bilinear_ref
 from test_torch_common import t
 
 
-@pytest.mark.parametrize("shape_q,tk,scale", [
+ATTENTION_CASES = [
     ((1, 2, 64, 16), 64, None),        # DiT-mini heads (Dh 16)
     ((1, 2, 64, 64), 64, 1 / 8),       # DiT-S/2 heads, scale 1/8
     ((1, 1, 32, 256), 32, 1 / 16),     # SATRN heads, scale 1/16
-    ((1, 2, 40, 64), 96, 1 / 8),       # Tq != Tk
-])
+    ((1, 2, 40, 64), 96, 1 / 8),       # Tq != Tk (Tk a multiple of 8, as
+]                                      # the Pallas kernel asserts)
+
+
+@pytest.mark.parametrize("shape_q,tk,scale", ATTENTION_CASES)
 def test_attention_twin_matches_pallas(shape_q, tk, scale):
     b, h, tq, dh = shape_q
     rng = np.random.RandomState(0)
@@ -35,6 +39,29 @@ def test_attention_twin_matches_pallas(shape_q, tk, scale):
     s = scale if scale is not None else 1.0 / np.sqrt(dh)
     got = attention_ref(t(q), t(k), t(v), s).numpy()
     np.testing.assert_allclose(got, want, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("shape_q,tk,scale", ATTENTION_CASES)
+def test_attention_twin_matches_pallas_bf16(shape_q, tk, scale):
+    """bf16 inputs, as served: the oracle the card's bf16 kernel is held
+    to.  Both sides take f32 logits and softmax, cast p to bf16 before
+    P.V and accumulate in f32; their f32 sums run in different orders, so
+    an output may round to the neighbouring bf16 value: the bar is one
+    bf16 ulp (8 significant bits) at the largest output."""
+    b, h, tq, dh = shape_q
+    rng = np.random.RandomState(1)
+    # bf16 values held in f32, so both frameworks get the same numbers
+    q, k, v = (t(rng.randn(b, h, n, dh).astype(np.float32)).to(torch.bfloat16)
+               for n in (tq, tk, tk))
+    want = fused_attention(*(jnp.asarray(x.float().numpy(), jnp.bfloat16)
+                             for x in (q, k, v)), scale=scale, interpret=True)
+    assert want.dtype == jnp.bfloat16
+    want = np.asarray(want.astype(jnp.float32))
+    s = scale if scale is not None else 1.0 / np.sqrt(dh)
+    got = attention_ref(q, k, v, s)
+    assert got.dtype == torch.bfloat16
+    ulp = 2.0 ** (np.floor(np.log2(np.abs(want).max())) - 7)
+    np.testing.assert_allclose(got.float().numpy(), want, atol=ulp, rtol=0)
 
 
 @pytest.mark.parametrize("cin,cout,hw,dil", [
