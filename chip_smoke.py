@@ -8,13 +8,17 @@ exits non-zero -- nothing is caught):
 
 1. env      the card's name and power limit, torch/CUDA versions, the TF32
             settings; builds the kernels from ``dvd_tpu_torch/csrc`` for
-            sm_90a and prints nvcc's ``-Xptxas -v`` report (the wgmma
-            attention kernel must not spill), each kernel's dynamic shared
-            memory and the HGMMA count of the library's SASS.
+            sm_90a and prints nvcc's ``-Xptxas -v`` report (no instance
+            of the two wgmma kernels, K1's and K2's, may spill), each
+            kernel's dynamic shared memory (K2 bf16: its launch plan at one
+            main-path shape per instance) and the HGMMA count of the
+            library's SASS (every wgmma instance must have some).
 2. kernels  each hand-written kernel (K1-K5) against its plain PyTorch twin
             on the card at the serving and training paths' shapes, f32 and
-            bf16 (K1: f32 must take the CUDA-core kernel, bf16 the wgmma
-            one, plus a ragged bf16 case), with the stated tolerances (K5
+            bf16 (K1 and K2: f32 must take the CUDA-core kernel, bf16 the
+            wgmma one; K1 a ragged bf16 case; K2 bf16 at every shape class
+            of the serving and training paths, batches 4 and 10), with the
+            stated tolerances (K5
             bit for bit, at the probe's case and at an unwarp-scale case);
             the autograd Functions (attention, the trainable conv,
             warp_const_src) against the autograd of the plain versions;
@@ -28,10 +32,12 @@ exits non-zero -- nothing is caught):
 4. shipped  the shipped config (bf16, batch 4, 3 DDIM steps x 2
             hypotheses) through ``DewarpPipeline.dewarp_flow`` +
             ``unwarp_fixed`` and through the single-image CLI function on a
-            600x450 page; outputs checked, every K1 launch on the wgmma
-            route, and the flow against the same run with the models'
+            600x450 page; outputs checked, every K1 and K2 launch on the
+            wgmma route, the flow against the same run with the models'
             attention bound to its plain twin (within twice the change the
-            twin's own bf16 cast of p makes); imgs/s and ms per stage; one
+            twin's own bf16 cast of p makes) and with K2 bound to its twin
+            (within twice the change reversing the twin's input channels
+            makes), K2's launches by shape class; imgs/s and ms per stage; one
             run under torch.profiler for device time by kernel and the
             device's busy share.
 5. train32  one f32 train step of the shipped training config at full
@@ -74,6 +80,7 @@ script raises before printing any result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -83,6 +90,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
 
 import numpy as np
 import torch
@@ -124,10 +132,11 @@ RECORD_CASE = {
 
 KERNELS = {
     # name -> (source, replaced TPU kernel)
-    # the record case is bf16, the tensor-core kernel's (f32: attention.cu)
+    # the record cases are bf16, the tensor-core kernels' (f32: attention.cu,
+    # conv3x3.cu)
     "attention": ("dvd_tpu_torch/csrc/attention_wgmma.cu",
                   "dvd_tpu/ops/pallas/attention.py:49"),
-    "conv3x3": ("dvd_tpu_torch/csrc/conv3x3.cu",
+    "conv3x3": ("dvd_tpu_torch/csrc/conv3x3_wgmma.cu",
                 "dvd_tpu/ops/pallas/planar_conv.py:247"),
     "gather_bilinear": ("dvd_tpu_torch/csrc/grid_sample.cu",
                         "dvd_tpu/ops/pallas/grid_sample.py:122"),
@@ -229,6 +238,30 @@ def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def cuda_graph_ms(fn, iters: int = 20) -> float:
+    """Mean device time of ``fn`` from one CUDA graph of ``iters`` calls:
+    no host launch cost between them, which back-to-back calls of a
+    kernel of a few microseconds measure instead."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()   # first-call set-up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def compare(name, got, want, bar, rel=False):
     err = (got.float() - want.float()).abs().max().item()
     ref = want.float().abs().max().item()
@@ -258,16 +291,23 @@ def phase_env(state):
     t0 = time.perf_counter()
     kl = build.load_library()
     how = (f"built in {time.perf_counter() - t0:.1f} s (nvcc "
-           f"{kl.build_seconds:.1f} s)" if kl.build_seconds else
+           f"{kl.build_seconds:.1f} s, one process per source, all at once: "
+           + ", ".join(f"{src} {sec:.1f} s"
+                       for src, sec in kl.source_seconds.items()) + ")"
+           if kl.build_seconds else
            "loaded from an earlier build of the same sources")
     log(f"[env] kernels from dvd_tpu_torch/csrc for sm_90a {how} -> "
         f"{kl.path.relative_to(build.PKG_DIR.parent)}")
     for line in kl.build_log.splitlines():
         if "warning" in line.lower():
             log(f"[env] nvcc: {line.strip()}")
+    # the tensor-core kernels: every instance must run without spills and
+    # have HGMMA in its SASS (K1: 5 head dims; K2: 4 widths x 3 chunk
+    # sizes, and 256-pixel blocks at n128 x 2 chunk sizes)
+    wgmma_kernels = {"attention_wgmma_kernel": 5, "conv3x3_wgmma_kernel": 14}
     for entry, regs, spills in ptxas_report(kl.build_log):
         log(f"[env] ptxas -v {entry}: {regs}; {spills}")
-        if entry.startswith("attention_wgmma_kernel<") and any(
+        if entry.split("<")[0] in wgmma_kernels and any(
                 int(n) for n in re.findall(r"(\d+) bytes spill", spills)):
             raise AssertionError(f"{entry} spills: {spills}")
     hgmma = sass_hgmma(kl.path)
@@ -275,25 +315,40 @@ def phase_env(state):
         log("[env] HGMMA in the library's SASS: not counted (the toolkit has "
             "no cuobjdump)")
     else:
-        wg = {k: n for k, n in hgmma.items()
-              if k.startswith("attention_wgmma_kernel<")}
         log(f"[env] HGMMA in the library's SASS (cuobjdump -sass): "
-            f"{sum(hgmma.values())} in all; {wg}")
-        if len(wg) != 5 or min(wg.values()) <= 0:
-            raise AssertionError(f"attention_wgmma_kernel without HGMMA: {wg}")
+            f"{sum(hgmma.values())} in all")
+        for kernel, n in wgmma_kernels.items():
+            wg = {k: c for k, c in hgmma.items() if k.startswith(kernel + "<")}
+            log(f"[env]   {kernel}: {wg}")
+            if len(wg) != n or min(wg.values()) <= 0:
+                raise AssertionError(f"{kernel} without HGMMA: {wg}")
     # every kernel's shared memory is dynamic, which ptxas does not report
     from dvd_tpu_torch.ops.kernels.attention import HEAD_DIMS
+    from dvd_tpu_torch.ops.kernels.conv3x3 import wgmma_plan
     kib = lambda n: f"{n / 1024:.1f} KiB"
     log("[env] dynamic shared memory per block: attention_fwd_kernel " + ", ".join(
         f"Dh {dh} {kib(kl.lib.dvd_attention_smem_bytes(dh))}" for dh in HEAD_DIMS))
     log("[env] dynamic shared memory per block: attention_wgmma_kernel "
         + ", ".join(f"Dh {dh} {kib(kl.lib.dvd_attention_wgmma_smem_bytes(dh))}"
                     for dh in HEAD_DIMS))
-    log("[env] dynamic shared memory per block: conv3x3_kernel " + ", ".join(
+    log("[env] dynamic shared memory per block: conv3x3_kernel (f32) " + ", ".join(
         f"<{cot}> d{d} {kib(kl.lib.dvd_conv3x3_smem_bytes(cot, d))}"
         for cot in (16, 32) for d in (1, 2, 4, 8))
         + "; gather_bilinear_kernel 0; gather_bilinear_grad_kernel 0; "
         "gather2d_kernel 0")
+    # the bf16 conv's shared memory follows its launch plan: one shape of
+    # the main path per instance <BN, CC>
+    for cin, cout, hw, d in ((4, 1, 288, 1), (4, 16, 288, 1), (4, 64, 512, 1),
+                             (3, 128, 288, 1), (16, 1, 288, 1), (16, 16, 9, 8),
+                             (16, 64, 288, 1), (16, 128, 36, 1),
+                             (16, 128, 288, 1), (64, 1, 288, 1), (64, 16, 288, 1),
+                             (64, 64, 512, 1), (1024, 512, 36, 1),
+                             (256, 256, 128, 1)):
+        p = wgmma_plan(4, cin, cout, hw, hw, d)
+        log(f"[env] conv3x3_wgmma_kernel<{p['bn']},{p['cc']},{p['mt']}> at "
+            f"{cin}->{cout} @{hw}^2 d{d} b4: tile {p['th']}x{p['tw']}, copies "
+            f"of {p['v']} elements, {kib(p['smem'])} dynamic shared memory, "
+            f"{p['blocks']} blocks")
 
 
 # ---------------------------------------------------------------- phase 2
@@ -351,13 +406,38 @@ def _grads_vs(name, fn, ref, inputs, ct, bar_rel):
     return err_out, err
 
 
+# K2's shape classes on the serving and training paths (Cin, Cout, plane,
+# dilation): the pyramid (4->64 @512 ... 256->256 @128), the line UNet (to
+# 1024->512 @36 and 512->512 @18), U2NetP (16- and 64-channel layers from
+# 288^2 down to 9^2, dilations 2/4/8 at the bottom, 64->1 side convs)
+CONV_CLASSES = ((4, 64, 512, 1), (64, 64, 512, 1), (64, 128, 256, 1),
+                (128, 128, 256, 1), (128, 256, 128, 1), (256, 256, 128, 1),
+                (3, 64, 288, 1), (128, 64, 288, 1), (512, 256, 72, 1),
+                (1024, 512, 36, 1), (512, 512, 18, 1), (32, 64, 288, 1),
+                (64, 16, 288, 1), (32, 16, 72, 1), (16, 16, 9, 2),
+                (16, 16, 9, 4), (16, 16, 9, 8), (64, 1, 288, 1))
+
+
+def _conv_case(b, cin, cout, hw, dt, gen, dev):
+    """x, w, scale, bias of a conv at unit-scale activations; ``hw``: the
+    plane's side, or (H, W)."""
+    hw = (hw, hw) if isinstance(hw, int) else hw
+    x = torch.randn((b, cin, *hw), generator=gen, device=dev).to(dt)
+    w = (torch.randn((cout, cin, 3, 3), generator=gen, device=dev)
+         / math.sqrt(9 * cin)).to(dt)
+    s = 1 + 0.1 * torch.randn((cout,), generator=gen, device=dev)
+    bi = 0.1 * torch.randn((cout,), generator=gen, device=dev)
+    return x, w, s, bi
+
+
 def phase_kernels(state):
     import torch.nn.functional as F
 
     from dvd_tpu_torch.ops.grid_sample import unnormalize, warp_const_src
     from dvd_tpu_torch.ops.kernels.attention import attention, attention_ref
     from dvd_tpu_torch.ops.kernels.conv3x3 import (conv3x3, conv3x3_ref,
-                                                   conv3x3_trainable)
+                                                   conv3x3_trainable,
+                                                   k_major_weights)
     from dvd_tpu_torch.ops.kernels.gather2d import gather2d, gather2d_ref
     from dvd_tpu_torch.ops.kernels.grid_sample import (
         gather_bilinear, gather_bilinear_grad, gather_bilinear_grad_ref,
@@ -381,9 +461,9 @@ def phase_kernels(state):
                 ((8, 6, 1000, 256), 1 / 16, (bf16,), None)):  # ragged
             for dt in dts:
                 q, k, v = _qkv(*shape, dt, gen, dev)
-                before = attention_routes()
+                before = routes("attention")
                 got = attention(q, k, v, scale)
-                route = attention_routes()
+                route = routes("attention")
                 route = {r: route[r] - before[r] for r in route}
                 want = attention_ref(q, k, v, scale)
                 bar = TOL["attention_f32"] if dt == torch.float32 else \
@@ -393,8 +473,9 @@ def phase_kernels(state):
                                         compare(f"{case} {route}", got, want, bar))
                 if route != {"wgmma": int(dt == bf16), "f32": int(dt != bf16)}:
                     raise AssertionError(f"K1 {case} took the routes {route}")
-                if dt == bf16 and aim:
-                    aims[case] = aim
+                if aim:  # timed in both dtypes; the aim is bf16's
+                    if dt == bf16:
+                        aims[case] = aim
                     b, h, tq, dh = shape
                     _record(times, "attention", case,
                             lambda: attention(q, k, v, scale),
@@ -403,37 +484,49 @@ def phase_kernels(state):
                                 q, k, v, scale=scale),
                             _nbytes(q, k, v, got), 4 * b * h * tq * tq * dh, dt)
 
-        log("[kernels] K2 conv3x3 (B, Cin, H, W) -> Cout, dilation")
-        # serving's batch 4, then the frozen aux nets' shapes at the
-        # training batch (the pyramid's are the Function's, below)
+        log("[kernels] K2 conv3x3 (B, Cin, H, W) -> Cout, dilation: f32 on "
+            "the CUDA cores, bf16 through wgmma")
+        # the f32 kernel at the serving batch and the frozen aux nets'
+        # shapes at the training batch
         for b, cin, cout, hw, d in ((4, 3, 16, 288, 1), (4, 64, 16, 9, 8),
                                     (4, 4, 64, 512, 1), (4, 256, 256, 128, 1),
                                     (4, 1024, 512, 36, 1), (4, 64, 1, 288, 1),
                                     (10, 3, 16, 288, 1), (10, 64, 16, 9, 8),
                                     (10, 64, 1, 288, 1)):
-            for dt in (torch.float32, bf16):
-                x = torch.randn((b, cin, hw, hw), generator=gen, device=dev).to(dt)
-                w = (torch.randn((cout, cin, 3, 3), generator=gen, device=dev)
-                     / math.sqrt(9 * cin)).to(dt)
-                s = 1 + 0.1 * torch.randn((cout,), generator=gen, device=dev)
-                bi = 0.1 * torch.randn((cout,), generator=gen, device=dev)
-                got = conv3x3(x, w, s, bi, d, True)
+            x, w, s, bi = _conv_case(b, cin, cout, hw, torch.float32, gen, dev)
+            before = routes("conv3x3")
+            got = conv3x3(x, w, s, bi, d, True)
+            route = {r: n - before[r] for r, n in routes("conv3x3").items()}
+            name = f"{cin}->{cout} @{hw}^2 d{d} b{b} float32"
+            errs["conv3x3"] = max(errs["conv3x3"], compare(
+                f"{name} {route}", got, conv3x3_ref(x, w, s, bi, d, True),
+                TOL["conv3x3_f32_rel"], rel=True))
+            if route != {"wgmma": 0, "f32": 1}:
+                raise AssertionError(f"K2 {name} took the routes {route}")
+        # bf16: every shape class of the serving and training paths (the
+        # pyramid, the line UNet, U2NetP), at batch 4 (timed) and 10
+        for b in (4, 10):
+            for cin, cout, hw, d in CONV_CLASSES:
+                x, w, s, bi = _conv_case(b, cin, cout, hw, bf16, gen, dev)
+                wk = k_major_weights(w)
+                before = routes("conv3x3")
+                got = conv3x3(x, w, s, bi, d, True, wk)
+                route = {r: n - before[r] for r, n in routes("conv3x3").items()}
                 want = conv3x3_ref(x, w, s, bi, d, True)
-                name = f"{cin}->{cout} @{hw}^2 d{d} b{b} {str(dt)[6:]}"
-                if dt == torch.float32:
-                    errs["conv3x3"] = max(errs["conv3x3"], compare(
-                        name, got, want, TOL["conv3x3_f32_rel"], rel=True))
-                else:
-                    bar = TOL["bf16"] * max(1.0, want.float().abs().max().item())
-                    errs["conv3x3"] = max(errs["conv3x3"],
-                                          compare(name, got, want, bar))
-                    bl = bi.to(dt)
+                name = f"{cin}->{cout} @{hw}^2 d{d} b{b} bfloat16"
+                bar = TOL["bf16"] * max(1.0, want.float().abs().max().item())
+                errs["conv3x3"] = max(errs["conv3x3"],
+                                      compare(f"{name} {route}", got, want, bar))
+                if route != {"wgmma": 1, "f32": 0}:
+                    raise AssertionError(f"K2 {name} took the routes {route}")
+                if b == 4:
+                    bl = bi.to(bf16)
                     _record(times, "conv3x3", name,
-                            lambda: conv3x3(x, w, s, bi, d, True),
+                            lambda: conv3x3(x, w, s, bi, d, True, wk),
                             lambda: conv3x3_ref(x, w, s, bi, d, True),
                             lambda: F.conv2d(x, w, bl, 1, d, d),
                             _nbytes(x, w, s, bi, got),
-                            2 * b * cout * cin * 9 * hw * hw, dt)
+                            2 * b * cout * cin * 9 * hw * hw, bf16)
 
         log("[kernels] K3 gather_bilinear (N, C, H, W) at a smooth flow grid")
         # the serving unwarp and re-warp, the dataset path's unwarp_native
@@ -589,6 +682,12 @@ def phase_kernels(state):
         x = r["ms"] / r["library_ms"]
         log(f"[kernels] K1 {case}: {x:.2f}x scaled_dot_product_attention "
             f"(aim <= {aim:g}x: {'met' if x <= aim else 'NOT met'})")
+    # K2's aim: bf16 within 2x of conv2d at the record case (reported)
+    r = times[("conv3x3", RECORD_CASE["conv3x3"])]
+    x = r["ms"] / r["library_ms"]
+    log(f"[kernels] K2 {RECORD_CASE['conv3x3']}: {x:.2f}x conv2d, "
+        f"{r['bound_ms'] / r['ms']:.1%} of its bound (aim <= 2x: "
+        f"{'met' if x <= 2 else 'NOT met'})")
     state["kernel_errs"] = errs
     state["kernel_times"] = times
 
@@ -626,21 +725,69 @@ def _kernel_fns():
             "gather2d": gather2d}
 
 
+# the kernels with two routes: bf16 through wgmma, f32 on the CUDA cores
+ROUTED = ("attention", "conv3x3")
+
+
 def reset_launches() -> None:
     for fn in _kernel_fns().values():
         fn.launches = 0
-    attn = _kernel_fns()["attention"]
-    attn.launches_wgmma = attn.launches_f32 = 0
+    for name in ROUTED:
+        fn = _kernel_fns()[name]
+        fn.launches_wgmma = fn.launches_f32 = 0
 
 
 def read_launches() -> dict:
     return {name: fn.launches for name, fn in _kernel_fns().items()}
 
 
-def attention_routes() -> dict:
-    """K1's launches by route: bf16 through wgmma, f32 on the CUDA cores."""
-    attn = _kernel_fns()["attention"]
-    return {"wgmma": attn.launches_wgmma, "f32": attn.launches_f32}
+def routes(name: str) -> dict:
+    """A routed kernel's launches by route."""
+    fn = _kernel_fns()[name]
+    return {"wgmma": fn.launches_wgmma, "f32": fn.launches_f32}
+
+
+def check_conv_route(what: str, dtype) -> dict:
+    """Every K2 launch since the last reset took ``dtype``'s route: bf16
+    the tensor cores, f32 the CUDA cores."""
+    n, r = read_launches()["conv3x3"], routes("conv3x3")
+    want = {"wgmma": n, "f32": 0} if dtype == torch.bfloat16 else \
+        {"wgmma": 0, "f32": n}
+    log(f"[{what}] K2 by route {r} of {n} launches ({str(dtype)[6:]}: "
+        f"{'wgmma' if dtype == torch.bfloat16 else 'the CUDA cores'})")
+    if r != want or n <= 0:
+        raise AssertionError(f"{what}: K2 routes {r}, expected {want}")
+    return r
+
+
+def conv_class(x, w, dilation) -> tuple:
+    """A K2 call's shape class: (B, Cin, Cout, H, W, dilation)."""
+    return (*x.shape[:2], w.shape[0], *x.shape[2:], int(dilation))
+
+
+@contextlib.contextmanager
+def conv_shape_counter(shapes: Counter):
+    """While open, counts the models' K2 calls into ``shapes`` by shape
+    class, each passed on as it was: the frozen aux nets' (through
+    ``layers.conv3x3``) and the trainable pyramid's (through
+    ``layers.conv3x3_trainable``).  Patched here, never in the package."""
+    from dvd_tpu_torch.models import layers
+
+    frozen, trainable = layers.conv3x3, layers.conv3x3_trainable
+
+    def counted(x, w, scale, bias, dilation=1, relu=True, wk=None):
+        shapes[conv_class(x, w, dilation)] += 1
+        return frozen(x, w, scale, bias, dilation, relu, wk)
+
+    def counted_trainable(x, w, bias, dilation=1, relu=True):
+        shapes[conv_class(x, w, dilation)] += 1
+        return trainable(x, w, bias, dilation, relu)
+
+    layers.conv3x3, layers.conv3x3_trainable = counted, counted_trainable
+    try:
+        yield shapes
+    finally:
+        layers.conv3x3, layers.conv3x3_trainable = frozen, trainable
 
 
 def _mask_logit_shift(pipe, source512: torch.Tensor,
@@ -700,6 +847,7 @@ def phase_slice32(state):
         if dev == "cuda":
             torch.cuda.synchronize()
             counts = read_launches()
+            check_conv_route("slice32", torch.float32)
         runs[dev] = (flow.cpu(), image.cpu())
         log(f"[slice32] {dev}: {m.dit_variant} {m.compute_dtype} batch 1, "
             f"{m.source_size}^2, {cfg.diffusion.diffusion_steps} steps x "
@@ -745,14 +893,15 @@ def phase_shipped(state):
     out = unwarp_fixed(src, flow)
     torch.cuda.synchronize()
     state["serve_launches"] = read_launches()
-    routes = attention_routes()
+    check_conv_route("shipped", torch.bfloat16)
+    k1_routes = routes("attention")
     log(f"[shipped] kernel launches in one main-path run: "
-        f"{state['serve_launches']}; K1 by route {routes}")
+        f"{state['serve_launches']}; K1 by route {k1_routes}")
     if state["serve_launches"] != SERVE_LAUNCHES:
         raise AssertionError(f"serving launches {state['serve_launches']}, "
                              f"expected {SERVE_LAUNCHES}")
-    if routes != {"wgmma": SERVE_LAUNCHES["attention"], "f32": 0}:
-        raise AssertionError(f"K1 routes {routes}: bf16 serving must run "
+    if k1_routes != {"wgmma": SERVE_LAUNCHES["attention"], "f32": 0}:
+        raise AssertionError(f"K1 routes {k1_routes}: bf16 serving must run "
                              f"every attention through wgmma")
     if flow.shape != (batch, m.image_size, m.image_size, 2) \
             or out.shape != src.shape:
@@ -763,7 +912,9 @@ def phase_shipped(state):
         raise AssertionError("shipped outputs not finite / flow outside [-1, 1]")
     log(f"[shipped] flow |max| {flow.abs().max().item():.4f}; unwarped "
         f"image range [{out.min().item():.3f}, {out.max().item():.3f}]")
-    _flow_vs_attention_twin(pipe, src, flow)
+    shapes = _flow_vs_conv_twin(pipe, src, flow,
+                                _flow_vs_attention_twin(pipe, src, flow))
+    _time_conv_classes(shapes, state["label"])
 
     # warm timing, stage by stage (host clock around synchronised work)
     iters = 5
@@ -861,6 +1012,107 @@ def _flow_vs_attention_twin(pipe, src, flow):
         f"{'met' if err <= TOL['flow_twin'] else 'NOT met'}")
     if not ok:
         raise AssertionError(f"flow with K1 vs the twin: {err:.3e} > {bar:.3e}")
+    return bar
+
+
+def _flow_vs_conv_twin(pipe, src, flow, k1_bar):
+    """The shipped bf16 flow again, from the same x_T, with the models'
+    K2 (``layers.conv3x3``, patched here, never in the package) bound to
+    its plain twin, and once more to the twin with the input channels
+    reversed (``x.flip(1)`` with ``w.flip(1)``: the same function, its f32
+    sums in another order, the only kind of difference the kernel may
+    make).  The kernel's |dflow| against the twin is held to twice that
+    channel-order effect; should it read 0, to K1's bar.  Also counts the
+    serving path's K2 launches by shape class."""
+    from dvd_tpu_torch.models import layers
+    from dvd_tpu_torch.ops.kernels.conv3x3 import conv3x3_ref
+
+    shapes = Counter()
+
+    def twin(x, w, scale, bias, dilation=1, relu=True, wk=None):
+        shapes[conv_class(x, w, dilation)] += 1
+        return conv3x3_ref(x, w, scale, bias, dilation, relu)
+
+    def twin_flipped(x, w, scale, bias, dilation=1, relu=True, wk=None):
+        return conv3x3_ref(x.flip(1), w.flip(1), scale, bias, dilation, relu)
+
+    flows = {"K2": flow}
+    kernel_conv = layers.conv3x3
+    try:
+        for name, fn in (("twin", twin), ("twin, channels reversed", twin_flipped)):
+            layers.conv3x3 = fn
+            before = read_launches()["conv3x3"]
+            flows[name] = pipe.dewarp_flow(
+                src, generator=torch.Generator(device="cuda").manual_seed(SEED + 5))
+            torch.cuda.synchronize()
+            if read_launches()["conv3x3"] != before:
+                raise AssertionError(f"the {name} run launched K2")
+    finally:
+        layers.conv3x3 = kernel_conv
+    log(f"[shipped] K2 launches of one serving run by shape class, (B, Cin, "
+        f"Cout, H, W, dilation): {dict(sorted(shapes.items()))}")
+    if sum(shapes.values()) != SERVE_LAUNCHES["conv3x3"]:
+        raise AssertionError(f"the twin run made {sum(shapes.values())} K2 calls")
+    dmax = {}
+    for a, b in (("K2", "twin"), ("twin, channels reversed", "twin")):
+        d = (flows[a].float() - flows[b].float()).abs()
+        dmax[a, b] = d.max().item()
+        log(f"[shipped] bf16 flow, {a} vs {b} (same weights and x_T): max "
+            f"|dflow| {dmax[a, b]:.3e}, mean {d.mean().item():.3e}, above "
+            f"1e-2 at {(d > 1e-2).float().mean().item():.2%}")
+    err, noise = dmax["K2", "twin"], dmax["twin, channels reversed", "twin"]
+    bar = 2 * noise if noise > 0 else k1_bar
+    ok = math.isfinite(err) and err <= bar
+    log(f"[shipped] K2 vs twin {err:.3e}: bar "
+        + (f"2 x the twin's own channel-order effect ({noise:.3e})" if noise > 0
+           else "K1's (the channel-order effect reads 0)")
+        + f" = {bar:.3e} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"flow with K2 vs the twin: {err:.3e} > {bar:.3e}")
+    return shapes
+
+
+def _time_conv_classes(shapes: Counter, label: str) -> None:
+    """Every K2 shape class of one serving run, on fresh bf16 inputs: the
+    kernel against its twin (the phase-2 bar), then its time beside
+    ``conv2d``'s and its bound, and the sums over the run's launches."""
+    import torch.nn.functional as F
+
+    from dvd_tpu_torch.ops.kernels.conv3x3 import (conv3x3, conv3x3_ref,
+                                                   k_major_weights)
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    log(f"[shipped] K2 by shape class, bf16, mean of 20 calls in a CUDA "
+        f"graph ({label}): kernel ms, conv2d ms, bound ms (by), launches per "
+        f"serving run; then the kernel's ms per call back to back from "
+        f"Python (the host's launch cost included)")
+    total = Counter()
+    for (b, cin, cout, h, w, d), n in sorted(shapes.items()):
+        x, wt, s, bi = _conv_case(b, cin, cout, (h, w), torch.bfloat16, gen, "cuda")
+        wk, bl = k_major_weights(wt), bi.bfloat16()
+        got = conv3x3(x, wt, s, bi, d, True, wk)
+        want = conv3x3_ref(x, wt, s, bi, d, True)
+        bar = TOL["bf16"] * max(1.0, want.float().abs().max().item())
+        err = (got.float() - want.float()).abs().max().item()
+        if not err <= bar:
+            raise AssertionError(f"K2 {cin}->{cout} @{h}x{w} d{d} b{b}: "
+                                 f"{err:.3e} > {bar:.3e}")
+        ms = cuda_graph_ms(lambda: conv3x3(x, wt, s, bi, d, True, wk))
+        lib = cuda_graph_ms(lambda: F.conv2d(x, wt, bl, 1, d, d))
+        eager = cuda_time_ms(lambda: conv3x3(x, wt, s, bi, d, True, wk))
+        by_bytes = _nbytes(x, wt, s, bi, got) / HBM_BYTES_PER_S * 1e3
+        by_ops = 18 * b * cin * cout * h * w / PEAK_FLOPS[torch.bfloat16] * 1e3
+        bound = max(by_bytes, by_ops)
+        total.update(kernel=n * ms, conv2d=n * lib, bound=n * bound,
+                     eager=n * eager)
+        log(f"  {cin}->{cout} @{h}x{w} d{d} b{b}: {ms:.4f} {lib:.4f} "
+            f"{bound:.3g} ({'bytes' if by_bytes >= by_ops else 'operations'}) "
+            f"x{n}; {eager:.4f}")
+    log(f"[shipped] K2 over one serving run's {sum(shapes.values())} launches, "
+        f"summed from the classes: kernel {total['kernel']:.3f} ms, conv2d "
+        f"{total['conv2d']:.3f} ms ({total['kernel'] / total['conv2d']:.2f}x), "
+        f"bound {total['bound']:.4f} ms; back to back from Python "
+        f"{total['eager']:.3f} ms ({label})")
 
 
 def _profile(pipe, src, gen, label, top=25):
@@ -884,12 +1136,15 @@ def _profile(pipe, src, gen, label, top=25):
     for key, us, n in rows[:top]:
         log(f"[profile]   {us / 1e3:9.3f} ms {us / 1e3 / busy:6.1%} x{n:<5d} "
             f"{key[:110]}")
-    _kernel_shares(rows, busy, "run")
+    if _kernel_shares(rows, busy, "run")["conv3x3_wgmma_kernel"] <= 0:
+        raise AssertionError("the profiled bf16 serving run shows no "
+                             "conv3x3_wgmma_kernel time")
 
 
 # the profiler's kernel names of K1-K4 (a template's name ends in "<")
 KERNEL_ENTRIES = (("K1", "attention_wgmma_kernel"), ("K1", "attention_fwd_kernel"),
-                  ("K2", "conv3x3_kernel"), ("K3", "gather_bilinear_kernel"),
+                  ("K2", "conv3x3_wgmma_kernel"), ("K2", "conv3x3_kernel"),
+                  ("K3", "gather_bilinear_kernel"),
                   ("K4", "gather_bilinear_grad_kernel"))
 
 
@@ -994,6 +1249,7 @@ def phase_train32(state):
         if dev == "cuda":
             torch.cuda.synchronize()
             counts = read_launches()
+            check_conv_route("train32", torch.float32)
         names = list(train_state.named_params())
         runs[dev] = (metrics["loss"].item(),
                      {k: g.detach().cpu() for k, g in zip(names, grads)})
@@ -1136,11 +1392,13 @@ def phase_train(state):
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
         t0 = time.perf_counter()
-        train_state = train(cfg, data, max_steps=steps, device="cuda",
-                            logger=logger, spans=spans)
+        with conv_shape_counter(Counter()) as shapes:
+            train_state = train(cfg, data, max_steps=steps, device="cuda",
+                                logger=logger, spans=spans)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = read_launches()
+        check_conv_route("train", torch.bfloat16)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         files = sorted(os.listdir(os.path.join(ws, cfg.name)))
         # the EMA snapshot outlives the workspace: phase 8 serves it
@@ -1157,6 +1415,11 @@ def phase_train(state):
     log(f"[train] kernel launches in the run: {counts}; per step {per_step}")
     if min(counts[k] for k in TRAIN_KERNELS) <= 0:
         raise AssertionError(f"a kernel of the path did not launch: {counts}")
+    log(f"[train] K2 launches per step by shape class, (B, Cin, Cout, H, W, "
+        f"dilation): {({k: n / steps for k, n in sorted(shapes.items())})}")
+    if sum(shapes.values()) != counts["conv3x3"]:
+        raise AssertionError(f"{sum(shapes.values())} K2 calls counted by "
+                             f"shape, {counts['conv3x3']} launches")
 
     losses = [r["loss"] for r in logger.rows]
     norms = [r["grad_norm"] for r in logger.rows]
@@ -1204,9 +1467,11 @@ def phase_train(state):
     for key, us, n in rows[:25]:
         log(f"[profile]   {us / 1e3:9.3f} ms {us / 1e3 / busy:6.1%} x{n:<5d} "
             f"{key[:110]}")
-    if _kernel_shares(rows, busy, "step")["attention_wgmma_kernel"] <= 0:
-        raise AssertionError("the profiled bf16 train step shows no "
-                             "attention_wgmma_kernel time")
+    shares = _kernel_shares(rows, busy, "step")
+    for entry in ("attention_wgmma_kernel", "conv3x3_wgmma_kernel"):
+        if shares[entry] <= 0:
+            raise AssertionError(f"the profiled bf16 train step shows no "
+                                 f"{entry} time")
 
 
 # ---------------------------------------------------------------- phase 7
@@ -1380,6 +1645,7 @@ def _driver_run(pipe, n_pages, out_dir, label, card):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_launches()
+    check_conv_route("dataset", torch.bfloat16)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     pred = os.path.join(out_dir, "dewarped_pred")
     maps = sorted(os.listdir(pred))

@@ -47,9 +47,11 @@
 // - Rounding: p is cast to bf16 relative to the running max and normalised
 //   by the f32 row sum at the end; the TPU kernel casts the normalised p.
 //   The two differ by bf16 rounding of p (relative 2^-9 per term).
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
+
+using namespace dvd;
 
 constexpr int kWarpgroups = 2;
 constexpr int kThreads = 128 * kWarpgroups;
@@ -91,59 +93,6 @@ constexpr int smem_bytes() {
 }
 
 #define DVD_FOR_EACH_DH(X) X(16) X(64) X(128) X(192) X(256)
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
-  // bytes 0 fills the 16 bytes with zeros
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(dst), "l"(src), "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-// the copies landed through the generic proxy; wgmma reads through the async one
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// keep the compiler from moving register reads or writes across the
-// asynchronous wgmma boundaries
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
-}
-
-// wgmma shared-memory matrix descriptor: start address, leading and stride
-// byte offsets (16-byte units) and the swizzle mode
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo, uint64_t mode) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (mode << 62);
-}
 
 #define DVD_D8(i)                                                              \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), \
@@ -193,11 +142,6 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 // copy rows [t0, t0 + R) of a (T, DH) bf16 matrix with row stride st into a
 // swizzled tile; rows at or past T are zero-filled
 template <int DH, int R>
@@ -212,7 +156,7 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const __nv_bfloat16* src
     const int r = i / kCpr, c = i % kCpr;
     const bool ok = t0 + r < T;
     const __nv_bfloat16* g = ok ? src + (long long)(t0 + r) * st + c * 8 : src;
-    cp_async16(dst + Layout<DH>::template offset<R>(r, c), g, ok ? 16 : 0);
+    cp_async<16>(dst + Layout<DH>::template offset<R>(r, c), g, ok ? 16 : 0);
   }
 }
 
@@ -286,7 +230,7 @@ __global__ void __launch_bounds__(kThreads, DH <= 64 ? 2 : 1) attention_wgmma_ke
                    make_desc(sk + blk * kBK * L::kRowBytes + off, 16, L::kAtom, L::kMode));
     }
     wgmma_commit();
-    wgmma_wait_all();
+    wgmma_wait<0>();
     fence_regs(s);
 
     // online softmax; element e of s is row lane / 4 + 8 * ((e / 2) % 2),
@@ -349,7 +293,7 @@ __global__ void __launch_bounds__(kThreads, DH <= 64 ? 2 : 1) attention_wgmma_ke
           wgmma_rs_n16(acc[n], p + 4 * kk, bd);
       }
     wgmma_commit();
-    wgmma_wait_all();
+    wgmma_wait<0>();
 #pragma unroll
     for (int n = 0; n < kNB; ++n) fence_regs(acc[n]);
   }

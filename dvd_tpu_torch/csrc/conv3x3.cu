@@ -1,20 +1,21 @@
-// K2: 'SAME' 3x3 convolution, dilation d, NCHW, with a per-channel
-// float32 epilogue y = acc * scale + bias, an optional ReLU, and the output
-// stored in the input's dtype.
+// K2, float32: 'SAME' 3x3 convolution, dilation d, NCHW, with a
+// per-channel float32 epilogue y = acc * scale + bias and an optional ReLU.
 //
 // Replaces the TPU kernel dvd_tpu/ops/pallas/planar_conv.py:conv3x3_planar
-// (_conv_kernel).  The scale/bias contract is kept: frozen BN and the conv
-// bias are folded into (scale, bias) once per weight set (see
+// (_conv_kernel) for float32 inputs (the f32 serving and training paths);
+// bfloat16 goes to the tensor-core kernel in conv3x3_wgmma.cu.  The
+// scale/bias contract is kept: frozen BN and the conv bias are folded into
+// (scale, bias) once per weight set (see
 // dvd_tpu_torch/models/layers.py:fold_conv_bn), and plain convs pass
 // scale = 1.  Inputs:
-// x (B, Cin, H, W), w (Cout, Cin, 3, 3) in x's dtype (float32 or bfloat16),
-// scale and bias (Cout,) float32.  Accumulation is float32.
+// x (B, Cin, H, W), w (Cout, Cin, 3, 3) float32, scale and bias (Cout,)
+// float32.
 //
 // What bounds it on the H100: at the big layers, FLOPs (the DiT pyramid's
-// 256->256 convs at 128^2 are ~19 GFLOP per image against ~17 MB of bf16
-// traffic); at U2NetP's 16-channel layers at 288^2, bytes (~0.4 GFLOP
-// against ~5 MB).  This first version runs the products on the CUDA cores
-// in float32, not on the tensor cores: right first; tensor cores next.
+// 256->256 convs at 128^2 are ~19 GFLOP per image against ~34 MB of f32
+// traffic); at U2NetP's 16-channel layers at 288^2, bytes.  The products
+// run on the CUDA cores in float32 (67 TFLOP/s), which the f32 paths'
+// 1e-4 bars ask for.
 //
 // Design: a direct convolution.  One block per (image, 32- or 16-channel
 // Cout tile, 8 x 32 output tile), one thread per output pixel holding the
@@ -172,11 +173,7 @@ extern "C" int dvd_conv3x3(const void* x, const void* w, const void* scale,
       dil > kMaxDilation || B > 65535 || (Cout + 15) / 16 > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == dvd::kFloat32)
-    return dispatch_cot<float>(x, w, scale, bias, out, B, Cin, Cout, H, W, dil,
-                               relu, s);
-  if (dtype == dvd::kBFloat16)
-    return dispatch_cot<__nv_bfloat16>(x, w, scale, bias, out, B, Cin, Cout, H,
-                                       W, dil, relu, s);
-  return (int)cudaErrorInvalidValue;
+  if (dtype != dvd::kFloat32) return (int)cudaErrorInvalidValue;
+  return dispatch_cot<float>(x, w, scale, bias, out, B, Cin, Cout, H, W, dil,
+                             relu, s);
 }

@@ -18,7 +18,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from dvd_tpu_torch.ops.kernels.attention import attention
-from dvd_tpu_torch.ops.kernels.conv3x3 import conv3x3, conv3x3_trainable
+from dvd_tpu_torch.ops.kernels.conv3x3 import (conv3x3, conv3x3_trainable,
+                                               k_major_weights)
 from dvd_tpu_torch.utils.dtypes import at_least_f32
 
 
@@ -160,8 +161,10 @@ def get_2d_sincos_pos_embed(embed_dim: int, grid_size: int) -> np.ndarray:
 
 def fold_conv_bn(conv: nn.Conv2d, bn: Optional[BatchNorm],
                  dtype: torch.dtype):
-    """(weight in ``dtype``, scale f32, bias f32) for K2: the conv bias and
-    the frozen BN folded as ``planar_aux._fused_affine`` does.
+    """(weight in ``dtype``, scale f32, bias f32, K-major weights) for K2:
+    the conv bias and the frozen BN folded as ``planar_aux._fused_affine``
+    does; in bf16 also the bf16 kernel's weight operand
+    (``k_major_weights``), else None.
 
     Cached on the conv, keyed by the dtype, the weights' storage and their
     version counters, so it is recomputed only after the weights are
@@ -181,8 +184,10 @@ def fold_conv_bn(conv: nn.Conv2d, bn: Optional[BatchNorm],
         else:
             scale, shift = bn.affine()
             b = b * scale + shift
-    conv.__dict__["_k2_fold"] = (key, (w, scale.contiguous(), b.contiguous()))
-    return w, scale, b
+        wk = k_major_weights(w) if dtype == torch.bfloat16 else None
+    folded = (w, scale.contiguous(), b.contiguous(), wk)
+    conv.__dict__["_k2_fold"] = (key, folded)
+    return folded
 
 
 def conv3x3_folded(conv: nn.Conv2d, bn: Optional[BatchNorm], x: torch.Tensor,
@@ -195,8 +200,8 @@ def conv3x3_folded(conv: nn.Conv2d, bn: Optional[BatchNorm], x: torch.Tensor,
             conv.weight.requires_grad or x.requires_grad):
         return conv3x3_trainable(x, conv.weight, conv.bias, conv.dilation[0],
                                  relu)
-    w, scale, bias = fold_conv_bn(conv, bn, x.dtype)
-    return conv3x3(x, w, scale, bias, conv.dilation[0], relu)
+    w, scale, bias, wk = fold_conv_bn(conv, bn, x.dtype)
+    return conv3x3(x, w, scale, bias, conv.dilation[0], relu, wk)
 
 
 def conv1x1_f32(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:

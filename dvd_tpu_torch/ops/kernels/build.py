@@ -1,9 +1,11 @@
 """Build and load the hand-written Hopper kernels (``dvd_tpu_torch/csrc``).
 
 The CUDA sources are compiled with ``nvcc`` for ``sm_90a`` into one shared
-library with a plain C interface and loaded with ``ctypes``: a few seconds
-to build, against minutes for an extension that includes PyTorch's
-headers.  The library is built at first use into ``dvd_tpu_torch/_build/``
+library with a plain C interface and loaded with ``ctypes``: seconds to
+build, against minutes for an extension that includes PyTorch's headers.
+Each source compiles in its own ``nvcc`` process, all started together,
+and one more links the objects.  The library is built at first use into
+``dvd_tpu_torch/_build/``
 (listed in ``.gitignore``), in a directory named by a hash of the sources
 and the command, so a checkout builds everything it needs from its own
 sources and a changed source is never served a stale library.
@@ -22,18 +24,21 @@ import shutil
 import subprocess
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import List, NamedTuple, Sequence
+from typing import Dict, List, NamedTuple, Sequence
 
 import torch
 
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("attention.cu", "attention_wgmma.cu", "conv3x3.cu", "grid_sample.cu",
-           "gather_probe.cu")
-HEADERS = ("common.cuh",)
+SOURCES = ("attention.cu", "attention_wgmma.cu", "conv3x3.cu",
+           "conv3x3_wgmma.cu", "grid_sample.cu", "gather_probe.cu")
+HEADERS = ("common.cuh", "hopper.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 LIB_NAME = "libdvd_kernels.so"
 
 # dtype codes shared with csrc/common.cuh
@@ -53,6 +58,8 @@ SIGNATURES = {
     "dvd_attention_fwd": _ATTENTION,
     "dvd_attention_fwd_wgmma": _ATTENTION,
     "dvd_conv3x3": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "dvd_conv3x3_wgmma": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "dvd_conv3x3_wgmma_plan": [_I, _I, _I, _I, _I, _I, _P],
     "dvd_gather_bilinear": [_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _I, _P],
     "dvd_gather_bilinear_grad": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                  _L, _L, _I, _P],
@@ -65,6 +72,7 @@ class KernelLibrary(NamedTuple):
     path: Path
     build_log: str        # nvcc's output, including -Xptxas -v
     build_seconds: float  # 0.0 when an earlier build was reused
+    source_seconds: Dict[str, float]  # each source's nvcc; empty if reused
 
 
 def find_nvcc() -> str:
@@ -79,12 +87,17 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
-def nvcc_command(out: Path, nvcc: str = "nvcc",
-                 sources: Sequence[str] = SOURCES) -> List[str]:
-    """The full nvcc command line for the kernel library."""
-    return [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-            "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", str(CSRC_DIR),
-            "-o", str(out), *(str(CSRC_DIR / s) for s in sources)]
+def compile_command(source: str, obj: Path, nvcc: str = "nvcc") -> List[str]:
+    """nvcc for one source of ``csrc`` into a position-independent object."""
+    return [nvcc, *NVCC_FLAGS, "-c", "-I", str(CSRC_DIR), "-o", str(obj),
+            str(CSRC_DIR / source)]
+
+
+def link_command(out: Path, objects: Sequence[Path],
+                 nvcc: str = "nvcc") -> List[str]:
+    """nvcc linking the objects into the shared library ``out``."""
+    return [nvcc, *ARCH_FLAGS, "-shared", "-o", str(out),
+            *(str(o) for o in objects)]
 
 
 def source_hash() -> str:
@@ -92,8 +105,15 @@ def source_hash() -> str:
     for name in HEADERS + SOURCES:
         h.update(name.encode())
         h.update((CSRC_DIR / name).read_bytes())
-    h.update(" ".join(nvcc_command(Path(LIB_NAME))[1:]).encode())
+    h.update(" ".join(NVCC_FLAGS + ("-shared",)).encode())
     return h.hexdigest()[:16]
+
+
+def _run(cmd: List[str]):
+    """(return code, output, seconds) of one nvcc command."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    return proc.returncode, proc.stdout + proc.stderr, time.perf_counter() - t0
 
 
 def _bind(path: Path) -> ctypes.CDLL:
@@ -121,24 +141,28 @@ def load_library() -> KernelLibrary:
     log_path = out_dir / "nvcc.log"
     if path.exists():
         log = log_path.read_text() if log_path.exists() else ""
-        return KernelLibrary(_bind(path), path, log, 0.0)
+        return KernelLibrary(_bind(path), path, log, 0.0, {})
     out_dir.mkdir(parents=True, exist_ok=True)
-    # build under a temporary name, then rename: concurrent builds never
-    # load a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = nvcc_command(Path(tmp), nvcc=find_nvcc())
+    nvcc = find_nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
-    log_path.write_text(log)
-    os.replace(tmp, path)
-    return KernelLibrary(_bind(path), path, log, seconds)
+    # build in a temporary directory, then rename the library into place:
+    # concurrent builds never load a half-written one
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        objects = [Path(tmp) / f"{Path(s).stem}.o" for s in SOURCES]
+        cmds = [compile_command(s, o, nvcc) for s, o in zip(SOURCES, objects)]
+        cmds.append(link_command(Path(tmp) / LIB_NAME, objects, nvcc))
+        with ThreadPoolExecutor(len(SOURCES)) as pool:
+            runs = list(pool.map(_run, cmds[:-1]))
+        if all(rc == 0 for rc, _, _ in runs):
+            runs.append(_run(cmds[-1]))
+        for cmd, (rc, out, _) in zip(cmds, runs):
+            if rc != 0:
+                raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{out}")
+        log = "".join(out for _, out, _ in runs)
+        log_path.write_text(log)
+        os.replace(Path(tmp) / LIB_NAME, path)
+    return KernelLibrary(_bind(path), path, log, time.perf_counter() - t0,
+                         {s: r[2] for s, r in zip(SOURCES, runs)})
 
 
 def check_launch(kl: KernelLibrary, err: int, name: str) -> None:

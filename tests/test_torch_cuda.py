@@ -20,7 +20,8 @@ from dvd_tpu_torch.evaluation.pipeline import native_grid, unwarp_native
 from dvd_tpu_torch.ops.grid_sample import unnormalize, warp_const_src
 from dvd_tpu_torch.ops.kernels.attention import HEAD_DIMS, attention, attention_ref
 from dvd_tpu_torch.ops.kernels.conv3x3 import (conv3x3, conv3x3_ref,
-                                               conv3x3_trainable)
+                                               conv3x3_trainable,
+                                               k_major_weights, wgmma_plan)
 from dvd_tpu_torch.ops.kernels.gather2d import gather2d, gather2d_ref
 from dvd_tpu_torch.ops.kernels.grid_sample import (gather_bilinear,
                                                    gather_bilinear_grad,
@@ -118,6 +119,52 @@ def test_conv3x3_kernel(dev, cin, cout, hw, dil, relu):
                                rtol=1e-4, atol=1e-5)
 
 
+def _conv_routes():
+    return conv3x3.launches_wgmma, conv3x3.launches_f32
+
+
+# every block width (Cout 1 -> n8, 16 -> n16, 33..64 -> n64, 128 and 200 ->
+# n128), Cin 3 and 4 (two taps per k16 step), 16, 130 and 1024 (a ragged
+# and a deep chunk count), planes 9^2, 18^2, 36^2 (rows 4- and 2-byte
+# aligned, odd: plain loads), an odd 17x23 and tiles across a wide 6x70 or
+# a 16-byte aligned 40x72, dilations 1-32 (32: only the tap bands staged);
+# the last four are large planes: 256-pixel blocks (mt 2) at n128 with
+# chunks of 16 and 32 channels, and 128-pixel ones at n64
+@pytest.mark.parametrize("cin,cout,hw,dil,mt", [
+    (3, 16, (17, 23), 1, 1), (4, 64, (36, 36), 1, 1), (16, 16, (9, 9), 2, 1),
+    (16, 16, (9, 9), 4, 1), (16, 16, (9, 9), 8, 1), (64, 1, (18, 18), 1, 1),
+    (130, 33, (6, 70), 1, 1), (9, 40, (9, 9), 32, 1), (1024, 128, (9, 9), 1, 1),
+    (32, 200, (18, 18), 2, 1), (64, 8, (36, 36), 32, 1),
+    (128, 64, (40, 72), 3, 1), (16, 64, (40, 72), 8, 1),
+    (32, 256, (128, 160), 1, 2), (16, 64, (256, 160), 2, 1),
+    (16, 128, (160, 256), 1, 2), (64, 64, (256, 160), 1, 1)])
+@pytest.mark.parametrize("relu", [True, False])
+def test_conv3x3_wgmma_kernel(dev, cin, cout, hw, dil, mt, relu):
+    """bf16: the tensor-core implicit GEMM, against the twin on the same
+    bf16 inputs (the two sum in different orders: at most a bf16 rounding
+    apart)."""
+    g = _gen()
+    x = torch.randn(2, cin, *hw, generator=g).to(dev, torch.bfloat16)
+    w = (torch.randn(cout, cin, 3, 3, generator=g) / (3 * cin ** 0.5)).to(
+        dev, torch.bfloat16)
+    s = (1 + 0.1 * torch.randn(cout, generator=g)).to(dev)
+    b = (0.1 * torch.randn(cout, generator=g)).to(dev)
+    before, (wgmma, f32) = conv3x3.launches, _conv_routes()
+    got = conv3x3(x, w, s, b, dil, relu)
+    assert conv3x3.launches == before + 1
+    assert _conv_routes() == (wgmma + 1, f32)
+    # the cached operand the aux nets pass gives the same result
+    assert torch.equal(conv3x3(x, w, s, b, dil, relu, k_major_weights(w)), got)
+    want = conv3x3_ref(x, w, s, b, dil, relu)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=2e-2 * max(1.0, want.float().abs().max().item()))
+    plan = wgmma_plan(2, cin, cout, *hw, dil)
+    assert plan["bn"] == (8 if cout <= 8 else 16 if cout <= 16 else
+                          64 if cout <= 64 else 128)
+    assert plan["mt"] == mt and plan["smem"] <= 232448
+
+
 @pytest.mark.parametrize("padding_mode", ["zeros", "border"])
 @pytest.mark.parametrize("shape", [(2, 3, 13, 17, 9, 11), (1, 5, 7, 129, 3, 200)])
 def test_gather_kernel(dev, padding_mode, shape):
@@ -154,6 +201,12 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         conv3x3(x.transpose(2, 3), w, one, one)
     with pytest.raises(ValueError):                         # halo too wide
         conv3x3(x, w, one, one, dilation=33)
+    buf = torch.randn(1 + 4 * 8 * 8, generator=g).to(dev, torch.bfloat16)
+    xb, wb = buf[1:].view(1, 4, 8, 8), w.bfloat16()          # off by one element
+    with pytest.raises(ValueError):                         # bf16: 16-byte bases
+        conv3x3(xb, wb, one, one)
+    with pytest.raises(ValueError):                         # bf16: not wk of w
+        conv3x3(xb.clone(), wb, one, one, wk=k_major_weights(wb)[:, :16])
     img = torch.rand(1, 2, 4, 4, generator=g).to(dev)
     with pytest.raises(TypeError):
         gather_bilinear(img.half(), img[:, 0], img[:, 1])

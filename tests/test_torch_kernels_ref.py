@@ -64,30 +64,67 @@ def test_attention_twin_matches_pallas_bf16(shape_q, tk, scale):
     np.testing.assert_allclose(got.float().numpy(), want, atol=ulp, rtol=0)
 
 
-@pytest.mark.parametrize("cin,cout,hw,dil", [
+CONV_CASES = [
     (5, 6, (9, 7), 1),      # odd plane
     (5, 6, (9, 7), 2),
     (8, 6, (9, 9), 4),
     (8, 4, (9, 9), 8),      # dilation 8 on a 9x9 plane: most taps in the pad
     (3, 16, (16, 11), 1),   # image entry (Cin 3)
-])
-def test_conv3x3_twin_matches_pallas(cin, cout, hw, dil):
+]
+
+
+def _conv_inputs(cin, cout, hw, dil):
     h, w = hw
     rng = np.random.RandomState(cin * 100 + dil)
     x = rng.randn(2, cin, h, w).astype(np.float32)
     wk = (rng.randn(3, 3, cin, cout) * 0.2).astype(np.float32)   # HWIO
     scale = (rng.randn(cout) * 0.1 + 1.0).astype(np.float32)
     bias = (rng.randn(cout) * 0.1).astype(np.float32)
-    pp = pad_p(h, w)
-    x_pl = np.zeros((2, cin, pp), np.float32)
-    x_pl[:, :, :h * w] = x.reshape(2, cin, h * w)
-    want = np.asarray(conv3x3_planar(
-        jnp.asarray(x_pl), jnp.asarray(wk), jnp.asarray(scale),
-        jnp.asarray(bias), hw=hw, dilation=dil, act="relu", interpret=True))
-    want = want[:, :, :h * w].reshape(2, cout, h, w)   # pad lanes are junk
+    return x, wk, scale, bias
+
+
+def _conv_pallas(x, wk, scale, bias, hw, dil, dtype):
+    """conv3x3_planar in interpret mode on NCHW x, in ``dtype``."""
+    h, w = hw
+    n, cin = x.shape[:2]
+    x_pl = np.zeros((n, cin, pad_p(h, w)), np.float32)
+    x_pl[:, :, :h * w] = x.reshape(n, cin, h * w)
+    want = conv3x3_planar(
+        jnp.asarray(x_pl, dtype), jnp.asarray(wk, dtype), jnp.asarray(scale),
+        jnp.asarray(bias), hw=hw, dilation=dil, act="relu", interpret=True)
+    assert want.dtype == dtype
+    want = np.asarray(want.astype(jnp.float32))
+    return want[:, :, :h * w].reshape(n, -1, h, w)   # pad lanes are junk
+
+
+@pytest.mark.parametrize("cin,cout,hw,dil", CONV_CASES)
+def test_conv3x3_twin_matches_pallas(cin, cout, hw, dil):
+    x, wk, scale, bias = _conv_inputs(cin, cout, hw, dil)
+    want = _conv_pallas(x, wk, scale, bias, hw, dil, jnp.float32)
     got = conv3x3_ref(t(x), t(wk.transpose(3, 2, 0, 1)), t(scale), t(bias),
                       dil, True).numpy()
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("cin,cout,hw,dil", CONV_CASES + [
+    (64, 8, (6, 10), 1)])   # Cin 64: the Pallas kernel's per-tap wide path
+def test_conv3x3_twin_matches_pallas_bf16(cin, cout, hw, dil):
+    """bf16 x and w, as served: the oracle the card's bf16 kernel is held
+    to.  Both sides take bf16 products, sum in f32, apply the f32 affine
+    and ReLU and round the output to bf16; their sums run in different
+    orders, so an output may round to the neighbouring bf16 value: the bar
+    is one bf16 ulp (8 significant bits) at the largest output."""
+    x, wk, scale, bias = _conv_inputs(cin, cout, hw, dil)
+    # bf16 values held in f32, so both frameworks get the same numbers
+    xb = t(x).to(torch.bfloat16)
+    wb = t(wk.transpose(3, 2, 0, 1)).to(torch.bfloat16)
+    want = _conv_pallas(xb.float().numpy(),
+                        wb.float().numpy().transpose(2, 3, 1, 0), scale, bias,
+                        hw, dil, jnp.bfloat16)
+    got = conv3x3_ref(xb, wb, t(scale), t(bias), dil, True)
+    assert got.dtype == torch.bfloat16
+    ulp = 2.0 ** (np.floor(np.log2(np.abs(want).max())) - 7)
+    np.testing.assert_allclose(got.float().numpy(), want, atol=ulp, rtol=0)
 
 
 @pytest.mark.parametrize("padding_mode", ["zeros", "border"])

@@ -22,6 +22,7 @@ from dvd_tpu.models import textline_unet as jline
 from dvd_tpu.models import u2net as ju2net
 from dvd_tpu.training import convert as jconvert
 from dvd_tpu_torch.models import dit, geotr, layers, satrn, textline_unet, u2net
+from dvd_tpu_torch.ops.kernels.conv3x3 import k_major_weights
 from dvd_tpu_torch.training.convert import SKIP, variables_to_state_dict
 from test_torch_common import (fill_zero_leaves, mask_margin_shift, nchw,
                                nhwc, np_tree, port, t)
@@ -309,3 +310,31 @@ def test_bn_fold_follows_loaded_weights():
         second = conv(x)
     assert not torch.allclose(first, second)
     torch.testing.assert_close(second, plain(conv), rtol=1e-5, atol=1e-5)
+
+
+def test_fold_cache_rebuilds_k_major_copy_after_load():
+    """In bf16 the fold cache also keeps the bf16 kernel's K-major weight
+    operand, built once per weight set: repeated calls reuse it, and
+    loading new weights in place rebuilds it from the new fold."""
+    conv = u2net.REBNCONV(4, 6, dirate=2)
+    g = torch.Generator().manual_seed(6)
+    x = torch.randn(1, 4, 7, 9, generator=g).bfloat16()
+
+    def cached():
+        w, _, _, wk = conv.conv_s1.__dict__["_k2_fold"][1]
+        torch.testing.assert_close(wk, k_major_weights(w), rtol=0, atol=0)
+        assert wk.dtype == torch.bfloat16
+        return wk
+
+    with torch.no_grad():
+        conv(x)
+        first = cached()
+        conv(x)
+        assert cached() is first
+        fresh = layers.seeded_init_(u2net.REBNCONV(4, 6, dirate=2), g)
+        conv.load_state_dict(fresh.state_dict())
+        conv(x)
+    second = cached()
+    assert second is not first and not torch.equal(second, first)
+    torch.testing.assert_close(
+        second, k_major_weights(fresh.conv_s1.weight), rtol=0, atol=0)

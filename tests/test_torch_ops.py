@@ -29,7 +29,9 @@ from dvd_tpu_torch.diffusion.schedule import make_schedule
 from dvd_tpu_torch.ops.grid_sample import grid_sample, warp
 from dvd_tpu_torch.ops.kernels import build
 from dvd_tpu_torch.ops.kernels.attention import attention, attention_ref
-from dvd_tpu_torch.ops.kernels.conv3x3 import conv3x3, conv3x3_ref
+from dvd_tpu_torch.ops.kernels.conv3x3 import (chunk_channels, conv3x3,
+                                               conv3x3_ref, k_major_cols,
+                                               k_major_weights)
 from dvd_tpu_torch.ops.kernels.gather2d import gather2d, gather2d_ref
 from dvd_tpu_torch.ops.kernels.grid_sample import (gather_bilinear,
                                                    gather_bilinear_ref)
@@ -163,15 +165,53 @@ def test_wrapper_takes_twin_for_cpu_tensors(name):
         wrapper(*meta)
 
 
+@pytest.mark.parametrize("cin,cout,dil", [(3, 16, 1), (4, 64, 2), (16, 16, 4),
+                                          (40, 8, 1), (130, 33, 3)])
+def test_k_major_weights_through_im2col(cin, cout, dil):
+    """The bf16 kernel's weight operand, fed through a plain im2col matmul
+    whose columns run in the kernel's order (Cin chunks, then taps, then
+    channels, each chunk padded to a multiple of 16), is the conv:
+    ``conv3x3_ref`` on the same bf16 values, in f32."""
+    g = torch.Generator().manual_seed(cin)
+    x = torch.randn(2, cin, 7, 10, generator=g).bfloat16().float()
+    w = torch.randn(cout, cin, 3, 3, generator=g) / (3 * cin ** 0.5)
+    s = 1 + 0.1 * torch.randn(cout, generator=g)
+    b = 0.1 * torch.randn(cout, generator=g)
+    wk = k_major_weights(w)
+    cc = chunk_channels(cin)
+    nch = -(-cin // cc)
+    assert wk.dtype == torch.bfloat16 and wk.shape == (cout, k_major_cols(cin))
+    kc = wk.shape[1] // nch
+    assert kc % 16 == 0 and kc >= 9 * cc
+    xp = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, nch * cc - cin))
+    cols = torch.nn.functional.unfold(xp, 3, dilation=dil, padding=dil)
+    cols = cols.reshape(2, nch, cc, 9, -1).transpose(2, 3)
+    cols = cols.reshape(2, nch, 9 * cc, -1)
+    cols = torch.nn.functional.pad(cols, (0, 0, 0, kc - 9 * cc))
+    y = torch.matmul(wk.float(), cols.reshape(2, nch * kc, -1))
+    y = torch.relu(y.reshape(2, cout, 7, 10) * s[:, None, None]
+                   + b[:, None, None])
+    want = conv3x3_ref(x, w.bfloat16().float(), s, b, dil, True)
+    torch.testing.assert_close(y, want, rtol=1e-5, atol=1e-5)
+
+
 def test_nvcc_command_targets_sm90a(tmp_path):
-    cmd = build.nvcc_command(tmp_path / "lib.so", nvcc="/x/nvcc")
-    assert cmd[0] == "/x/nvcc"
-    assert cmd[1:3] == ["-gencode", "arch=compute_90a,code=sm_90a"]
-    for flag in ("-std=c++17", "-O3", "-shared", "-fPIC", "-v"):
-        assert flag in cmd
-    srcs = [c for c in cmd if c.endswith(".cu")]
+    """One nvcc per source (the build starts them together), each for
+    sm_90a, then one linking the objects into the shared library."""
+    objects = [tmp_path / f"{Path(s).stem}.o" for s in build.SOURCES]
+    srcs = []
+    for source, obj in zip(build.SOURCES, objects):
+        cmd = build.compile_command(source, obj, nvcc="/x/nvcc")
+        assert cmd[0] == "/x/nvcc"
+        assert cmd[1:3] == ["-gencode", "arch=compute_90a,code=sm_90a"]
+        for flag in ("-std=c++17", "-O3", "-c", "-fPIC", "-v", str(obj)):
+            assert flag in cmd
+        srcs += [c for c in cmd if c.endswith(".cu")]
     assert sorted(Path(s).name for s in srcs) == sorted(build.SOURCES)
     assert all(Path(s).is_file() for s in srcs)
+    link = build.link_command(tmp_path / "lib.so", objects, nvcc="/x/nvcc")
+    assert link[:3] == ["/x/nvcc", "-gencode", "arch=compute_90a,code=sm_90a"]
+    assert "-shared" in link and link[-len(objects):] == [str(o) for o in objects]
     assert len(build.source_hash()) == 16
 
 
