@@ -11,19 +11,25 @@ exits non-zero -- nothing is caught):
             sm_90a and prints nvcc's ``-Xptxas -v`` report (no instance
             of the two wgmma kernels, K1's and K2's, may spill), each
             kernel's dynamic shared memory (K2 bf16: its launch plan at one
-            main-path shape per instance) and the HGMMA count of the
+            main-path shape per instance; K3: its channels and points per
+            thread at each main-path shape) and the HGMMA count of the
             library's SASS (every wgmma instance must have some).
 2. kernels  each hand-written kernel (K1-K5) against its plain PyTorch twin
             on the card at the serving and training paths' shapes, f32 and
             bf16 (K1 and K2: f32 must take the CUDA-core kernel, bf16 the
-            wgmma one; K1 a ragged bf16 case; K2 bf16 at every shape class
-            of the serving and training paths, batches 4 and 10), with the
-            stated tolerances (K5
+            wgmma one; K1 a ragged bf16 case and DiT-XL's head dim 72,
+            zero-padded to 128; K2 bf16 at every shape class of the
+            serving and training paths, batches 4 and 10; K3 through both
+            entries at its five main-path shapes; the fused unwarp at the
+            dataset path's uint8 2048^2 batch and the serving path's f32
+            512^2 one; K4 on the grid, both modes), with the stated
+            tolerances (K5
             bit for bit, at the probe's case and at an unwarp-scale case);
             the autograd Functions (attention, the trainable conv,
             warp_const_src) against the autograd of the plain versions;
             then each kernel's time beside its twin's, one PyTorch library
-            call's and its bound.
+            call's (the fused unwarp, which no one call computes: the
+            unfused path's) and its bound.
 3. slice32  the serving slice at full DiT-S/2 width and 512^2, batch 1, in
             f32: once on the card through the kernels (launch counts must
             all be > 0) and once on the CPU through the twins, with the
@@ -33,11 +39,16 @@ exits non-zero -- nothing is caught):
             hypotheses) through ``DewarpPipeline.dewarp_flow`` +
             ``unwarp_fixed`` and through the single-image CLI function on a
             600x450 page; outputs checked, every K1 and K2 launch on the
-            wgmma route, the flow against the same run with the models'
+            wgmma route, every K3 launch through its grid entry and the
+            unwarp through the fused kernel, the flow against the same run
+            with the models'
             attention bound to its plain twin (within twice the change the
             twin's own bf16 cast of p makes) and with K2 bound to its twin
             (within twice the change reversing the twin's input channels
-            makes), K2's launches by shape class; imgs/s and ms per stage; one
+            makes), and once more under torch's default TF32 switches (the
+            aux nets' f32 1x1 convs unchanged, the flow within the
+            ``flow_twin`` bar); K2's launches by shape class; imgs/s and
+            ms per stage; one
             run under torch.profiler for device time by kernel and the
             device's busy share.
 5. train32  one f32 train step of the shipped training config at full
@@ -61,21 +72,24 @@ exits non-zero -- nothing is caught):
             EMA snapshot that phase 6's ``train()`` wrote, served through
             ``maybe_load_pipeline_weights`` into a pipeline from another
             seed (4/4 loaded, every tensor equal to its source in the
-            serving dtype).  ``unwarp_native`` on the card against the CPU
-            for two pages in a 1536^2 canvas, TF32 off and on.  Then the
-            shipped config through ``run_benchmark`` on 100 stand-in pages
-            of 900-2000 px sides (canvas 2048), batch 4, and on 6 pages (a
-            padded last batch): run_stats.json, launches, peak memory, one
-            finite coordinate map in [-1, 1] per page; each stage's ms
-            per batch as the mean of 10 calls.  The stand-in
+            serving dtype).  ``unwarp_native`` (the fused unwarp) on the
+            card against the CPU for two pages in a 1536^2 canvas, TF32
+            off and on, and its coordinates through a ramp source.  Then
+            the shipped config through ``run_benchmark`` on 100 stand-in
+            pages of 900-2000 px sides (canvas 2048), batch 4, and on 6
+            pages (a padded last batch): run_stats.json, launches, peak
+            memory, one finite coordinate map in [-1, 1] per page; each
+            stage's ms per batch as the mean of 10 calls.  The stand-in
             dataset builds its pages from seeded arrays (the card's
             machine has no PIL or cv2), so decode and resize are outside
             the measured window.
 
-The line before the last is the per-kernel JSON record (K1-K4 launches
-from the training run, which drives all four; K5's from the probe); the
-last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device the
-script raises before printing any result.
+The line before the last is the per-kernel JSON record (every kernel and
+route, each with the launches of the run that drives it: K1-K4 from the
+training run, the fused unwarp from the serving run, the f32 routes from
+train32, K5 from the probe); the last line is ``{"ok": true, "device":
+{...}}``.  Without a CUDA device the script raises before printing any
+result.
 """
 
 from __future__ import annotations
@@ -108,11 +122,16 @@ TOL = {
     "flow_twin": 3e-2,         # aim: shipped bf16 flow, K1 vs the twin
     "slice_flow": 1e-3,        # f32 slice, card vs CPU
     "slice_image": 1e-3,       # unwarped image in [0, 1]
-    "native_grid": 1e-5,       # unwarp_native's canvas grid, card vs CPU
-    "native_image": 0.5,       # its f32 image on [0, 255]
+    "native_grid": 1e-5,       # unwarp_native's canvas grid, card vs CPU;
+                               # also the fused kernel's coordinates (ramp)
+    "native_image": 0.5,       # its f32 image on [0, 255] (0.5 / 255 on
+                               # the serving unwarp's [0, 1] source)
     "native_u8": 1,            # its uint8 image, levels
+    "conv1x1_f32_rel": 2 ** -23,  # conv1x1_f32 with TF32 on vs off: one f32
+                               # rounding at the largest output
     "train_loss_rel": 1e-4,    # f32 train step, card vs CPU, relative
     "train_grad": 1e-3,        # every gradient, x max(1, max|g|)
+    "train_points": 1e-4,      # the loss warp's [-1, 1] points, card vs CPU
 }
 
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense): the
@@ -124,26 +143,33 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # path's heaviest shape for each kernel, in the shipped dtype
 RECORD_CASE = {
     "attention": "(8, 6, 1024, 256) scale 0.0625 bfloat16",
+    "attention_f32": "(8, 6, 1024, 256) scale 0.0625 float32",
     "conv3x3": "256->256 @128^2 d1 b4 bfloat16",
-    "gather_bilinear": "(4, 3, 2048, 2048) zeros",
+    "conv3x3_f32": "256->256 @128^2 d1 b4 float32",
+    "gather_bilinear": "(8, 256, 64, 64) zeros",
+    "unwarp": "(4, 2048, 2048, 3) uint8 native",
     "gather_bilinear_grad": "(10, 2, 512, 512) zeros",
     "gather2d": "(2048, 2048) f32 at (2048, 2048) int32 near-identity",
 }
 
 KERNELS = {
-    # name -> (source, replaced TPU kernel)
-    # the record cases are bf16, the tensor-core kernels' (f32: attention.cu,
-    # conv3x3.cu)
+    # name -> (source, replaced TPU kernel, the run whose launches count)
     "attention": ("dvd_tpu_torch/csrc/attention_wgmma.cu",
-                  "dvd_tpu/ops/pallas/attention.py:49"),
+                  "dvd_tpu/ops/pallas/attention.py:49", "train"),
+    "attention_f32": ("dvd_tpu_torch/csrc/attention.cu",
+                      "dvd_tpu/ops/pallas/attention.py:49", "train32"),
     "conv3x3": ("dvd_tpu_torch/csrc/conv3x3_wgmma.cu",
-                "dvd_tpu/ops/pallas/planar_conv.py:247"),
+                "dvd_tpu/ops/pallas/planar_conv.py:247", "train"),
+    "conv3x3_f32": ("dvd_tpu_torch/csrc/conv3x3.cu",
+                    "dvd_tpu/ops/pallas/planar_conv.py:247", "train32"),
     "gather_bilinear": ("dvd_tpu_torch/csrc/grid_sample.cu",
-                        "dvd_tpu/ops/pallas/grid_sample.py:122"),
+                        "dvd_tpu/ops/pallas/grid_sample.py:122", "train"),
+    "unwarp": ("dvd_tpu_torch/csrc/unwarp.cu",
+               "dvd_tpu/ops/pallas/grid_sample.py:122", "serving"),
     "gather_bilinear_grad": ("dvd_tpu_torch/csrc/grid_sample.cu",
-                             "dvd_tpu/ops/pallas/grid_sample.py:253"),
+                             "dvd_tpu/ops/pallas/grid_sample.py:253", "train"),
     "gather2d": ("dvd_tpu_torch/csrc/gather_probe.cu",
-                 "tools/pallas_gather_probe.py:72"),
+                 "tools/pallas_gather_probe.py:72", "probe"),
 }
 # the kernels of the training path (K5 is the probe's alone)
 TRAIN_KERNELS = ("attention", "conv3x3", "gather_bilinear",
@@ -177,10 +203,10 @@ def _entry_name(symbol: str) -> str:
             t = re.compile(r"I(.*?)EE").match(symbol, pos)
             if not t:
                 return name
-            names = {"13__nv_bfloat16": "bf16", "f": "f32", "Lb1": "zeros",
-                     "Lb0": "border"}
+            names = {"13__nv_bfloat16": "bf16", "f": "f32", "h": "u8",
+                     "Lb1": "zeros", "Lb0": "border"}
             args = [names.get(a, a[2:] if a.startswith("Li") else a)
-                    for a in re.findall(r"13__nv_bfloat16|Li\d+|Lb\d|f",
+                    for a in re.findall(r"13__nv_bfloat16|Li\d+|Lb\d|f|h",
                                         t.group(1))]
             return f"{name}<{','.join(args)}>"
     return symbol
@@ -335,7 +361,17 @@ def phase_env(state):
         f"<{cot}> d{d} {kib(kl.lib.dvd_conv3x3_smem_bytes(cot, d))}"
         for cot in (16, 32) for d in (1, 2, 4, 8))
         + "; gather_bilinear_kernel 0; gather_bilinear_grad_kernel 0; "
+        "unwarp_kernel S^2 x 8 bytes (32.0 KiB at the latent's S = 64); "
         "gather2d_kernel 0")
+    # K3's plan (channels and points per thread) at each of its main-path
+    # shapes: the re-warps, the loss's warp, the unfused 2048^2 unwarp
+    from dvd_tpu_torch.ops.kernels.grid_sample import gather_plan
+    for n, c, hw in GATHER_CASES:
+        p = gather_plan(n, c, hw * hw)
+        log(f"[env] gather_bilinear_kernel at ({n}, {c}, {hw}, {hw}): "
+            f"{p['g']} channels x {p['pix']} points per thread, "
+            f"{p['groups']} channel groups x {p['blocks']} blocks x {n}, "
+            f"{n * p['groups'] * p['blocks'] * 256} threads")
     # the bf16 conv's shared memory follows its launch plan: one shape of
     # the main path per instance <BN, CC>
     for cin, cout, hw, d in ((4, 1, 288, 1), (4, 16, 288, 1), (4, 64, 512, 1),
@@ -406,6 +442,97 @@ def _grads_vs(name, fn, ref, inputs, ct, bar_rel):
     return err_out, err
 
 
+# K3's shapes (N, C, plane side): the serving unwarp's and the dataset
+# unwarp's gathers as the unfused path ran them, the sampler's feature
+# re-warp, then the training loss's warp and the rollout's re-warps
+GATHER_CASES = ((4, 3, 512), (8, 256, 64), (4, 3, 2048), (10, 2, 512),
+                (10, 256, 64))
+
+
+def _unwarp_kernel_cases(gen, errs, times):
+    """The fused unwarp against its plain version on the card: the dataset
+    path's batch (four pages of 906-2000 px in a 2048^2 uint8 canvas,
+    uint8 and f32 out) and the serving path's (4, 512, 512, 3) f32 page in
+    [0, 1]; timed beside the plain version and, as no single PyTorch call
+    computes it, the unfused path the port ran before (the coordinates in
+    plain torch, then K3's plane entry, then the uint8 rounding)."""
+    from dvd_tpu_torch.ops.kernels.grid_sample import (gather_bilinear,
+                                                       unnormalize)
+    from dvd_tpu_torch.ops.kernels.unwarp import (native_grid, to_u8, unwarp,
+                                                  unwarp_ref)
+    from dvd_tpu_torch.ops.resize import resize_bilinear
+    from dvd_tpu_torch.utils.grids import UNWARP_SHRINK, flow_to_grid
+
+    log("[kernels] the fused unwarp (csrc/unwarp.cu): flow upsample, grid, "
+        "canvas mapping, unnormalisation, K3's 'zeros' gather from NHWC and "
+        "the output conversion in one launch")
+
+    def unfused_native(src, hw, flow):
+        p = src.shape[1]
+        px, py = native_grid(hw, flow, p)
+        img = src.permute(0, 3, 1, 2).to(torch.float32).contiguous()
+        out = gather_bilinear(img, unnormalize(px, p).contiguous(),
+                              unnormalize(py, p).contiguous(), "zeros")
+        return to_u8(out.permute(0, 2, 3, 1))
+
+    def unfused_fixed(src, flow):
+        h, w = src.shape[1:3]
+        grid = flow_to_grid(resize_bilinear(flow.permute(0, 3, 1, 2), (h, w),
+                                            True).permute(0, 2, 3, 1),
+                            UNWARP_SHRINK)
+        img = src.permute(0, 3, 1, 2).to(torch.float32).contiguous()
+        out = gather_bilinear(img, unnormalize(grid[..., 0], w).contiguous(),
+                              unnormalize(grid[..., 1], h).contiguous(), "zeros")
+        return out.permute(0, 2, 3, 1)
+
+    b, p = 4, 2048
+    hws = [(2000, 1500), (1024, 2048), (1999, 1001), (906, 1997)]
+    src = torch.zeros((b, p, p, 3), dtype=torch.uint8)
+    cpu_gen = torch.Generator().manual_seed(SEED + 13)
+    for i, (h, w) in enumerate(hws):
+        src[i, :h, :w] = (_page(1, h, w, cpu_gen)[0] * 255).round().to(torch.uint8)
+    src = src.cuda()
+    hw = torch.tensor(hws, dtype=torch.int32, device="cuda")
+    flow = _smooth_flow(b, 64, cpu_gen).cuda()
+    before = read_launches()["unwarp"]
+    got_u8 = unwarp(src, flow, hw, out_u8=True)
+    got = unwarp(src, flow, hw)
+    if read_launches()["unwarp"] != before + 2:
+        raise AssertionError("the native unwarp did not launch the fused kernel")
+    want_u8 = unwarp_ref(src, flow, hw, out_u8=True)
+    want = unwarp_ref(src, flow, hw)
+    err = 0.0
+    for i, (h, w) in enumerate(hws):
+        err = max(err, compare(f"native uint8 {h}x{w} in a {p}^2 canvas",
+                               got_u8[i, :h, :w].int(), want_u8[i, :h, :w].int(),
+                               TOL["native_u8"]))
+        compare(f"native f32 {h}x{w} in a {p}^2 canvas", got[i, :h, :w],
+                want[i, :h, :w], TOL["native_image"])
+    case = RECORD_CASE["unwarp"]
+    # per pixel: taps and lerps (~30), grid and canvas mapping (~22), the
+    # corners (~20), 8 per channel for the blend and the rounding
+    _record(times, "unwarp", case, lambda: unwarp(src, flow, hw, out_u8=True),
+            lambda: unwarp_ref(src, flow, hw, out_u8=True), None,
+            _nbytes(src, flow, hw, got_u8), b * p * p * (72 + 8 * 3),
+            torch.float32)
+    times[("unwarp", case)]["yardstick_ms"] = cuda_time_ms(
+        lambda: unfused_native(src, hw, flow))
+    errs["unwarp"] = err
+
+    src = torch.rand((b, 512, 512, 3), generator=cpu_gen).cuda()
+    flow = _smooth_flow(b, 64, cpu_gen).cuda()
+    got = unwarp(src, flow)
+    compare("fixed f32 (4, 512, 512, 3) in [0, 1]", got,
+            unwarp_ref(src, flow), TOL["native_image"] / 255)
+    case = "(4, 512, 512, 3) float32 fixed"
+    _record(times, "unwarp", case, lambda: unwarp(src, flow),
+            lambda: unwarp_ref(src, flow), None,
+            _nbytes(src, flow, got), b * 512 * 512 * (60 + 8 * 3),
+            torch.float32)
+    times[("unwarp", case)]["yardstick_ms"] = cuda_time_ms(
+        lambda: unfused_fixed(src, flow))
+
+
 # K2's shape classes on the serving and training paths (Cin, Cout, plane,
 # dilation): the pyramid (4->64 @512 ... 256->256 @128), the line UNet (to
 # 1024->512 @36 and 512->512 @18), U2NetP (16- and 64-channel layers from
@@ -440,8 +567,8 @@ def phase_kernels(state):
                                                    k_major_weights)
     from dvd_tpu_torch.ops.kernels.gather2d import gather2d, gather2d_ref
     from dvd_tpu_torch.ops.kernels.grid_sample import (
-        gather_bilinear, gather_bilinear_grad, gather_bilinear_grad_ref,
-        gather_bilinear_ref)
+        gather_bilinear, gather_bilinear_grad, gather_bilinear_grad_grid_ref,
+        gather_bilinear_grid, gather_bilinear_grid_ref, gather_bilinear_ref)
     from dvd_tpu_torch.tools.gather_probe import probe_inputs
 
     dev = torch.device("cuda")
@@ -454,10 +581,14 @@ def phase_kernels(state):
             "f32 on the CUDA cores, bf16 through wgmma")
         # K1's aims: bf16 within 3x of scaled_dot_product_attention at Dh 64,
         # 2x at Dh 256 (reported, not enforced: a time is not a check)
+        # Dh 72 (DiT-XL/2: 16 heads of 72) has no instance: the wrapper
+        # zero-pads it to 128; its bound is the Dh 72 work
         aims = {}
         for shape, scale, dts, aim in (
                 ((8, 6, 1024, 64), 1 / 8, (torch.float32, bf16), 3.0),
                 ((8, 6, 1024, 256), 1 / 16, (torch.float32, bf16), 2.0),
+                ((8, 16, 1024, 72), 1 / math.sqrt(72), (torch.float32, bf16),
+                 0.0),
                 ((8, 6, 1000, 256), 1 / 16, (bf16,), None)):  # ragged
             for dt in dts:
                 q, k, v = _qkv(*shape, dt, gen, dev)
@@ -469,15 +600,16 @@ def phase_kernels(state):
                 bar = TOL["attention_f32"] if dt == torch.float32 else \
                     TOL["bf16"] * max(1.0, want.float().abs().max().item())
                 case = f"{shape} scale {scale:g} {str(dt)[6:]}"
-                errs["attention"] = max(errs["attention"],
-                                        compare(f"{case} {route}", got, want, bar))
+                key = "attention" if dt == bf16 else "attention_f32"
+                errs[key] = max(errs[key], compare(f"{case} {route}", got,
+                                                   want, bar))
                 if route != {"wgmma": int(dt == bf16), "f32": int(dt != bf16)}:
                     raise AssertionError(f"K1 {case} took the routes {route}")
-                if aim:  # timed in both dtypes; the aim is bf16's
-                    if dt == bf16:
+                if aim is not None:  # timed in both dtypes; the aim is bf16's
+                    if dt == bf16 and aim:
                         aims[case] = aim
                     b, h, tq, dh = shape
-                    _record(times, "attention", case,
+                    _record(times, key, case,
                             lambda: attention(q, k, v, scale),
                             lambda: attention_ref(q, k, v, scale),
                             lambda: F.scaled_dot_product_attention(
@@ -498,11 +630,18 @@ def phase_kernels(state):
             got = conv3x3(x, w, s, bi, d, True)
             route = {r: n - before[r] for r, n in routes("conv3x3").items()}
             name = f"{cin}->{cout} @{hw}^2 d{d} b{b} float32"
-            errs["conv3x3"] = max(errs["conv3x3"], compare(
+            errs["conv3x3_f32"] = max(errs["conv3x3_f32"], compare(
                 f"{name} {route}", got, conv3x3_ref(x, w, s, bi, d, True),
                 TOL["conv3x3_f32_rel"], rel=True))
             if route != {"wgmma": 0, "f32": 1}:
                 raise AssertionError(f"K2 {name} took the routes {route}")
+            if name == RECORD_CASE["conv3x3_f32"]:   # f32 conv2d, TF32 off
+                _record(times, "conv3x3_f32", name,
+                        lambda: conv3x3(x, w, s, bi, d, True),
+                        lambda: conv3x3_ref(x, w, s, bi, d, True),
+                        lambda: F.conv2d(x, w, bi, 1, d, d),
+                        _nbytes(x, w, s, bi, got),
+                        2 * b * cout * cin * 9 * hw * hw, torch.float32)
         # bf16: every shape class of the serving and training paths (the
         # pyramid, the line UNet, U2NetP), at batch 4 (timed) and 10
         for b in (4, 10):
@@ -528,62 +667,66 @@ def phase_kernels(state):
                             _nbytes(x, w, s, bi, got),
                             2 * b * cout * cin * 9 * hw * hw, bf16)
 
-        log("[kernels] K3 gather_bilinear (N, C, H, W) at a smooth flow grid")
-        # the serving unwarp and re-warp, the dataset path's unwarp_native
-        # at its 2048^2 canvas, then the training loss's warp and the
-        # rollout's re-warps at batch 10
-        for n, c, hw, modes in ((4, 3, 512, ("zeros", "border")),
-                                (8, 256, 64, ("zeros",)),
-                                (4, 3, 2048, ("zeros",)),
-                                (10, 2, 512, ("zeros",)),
-                                (10, 256, 64, ("zeros",))):
+        log("[kernels] K3 gather_bilinear (N, C, H, W) at a smooth flow grid: "
+            "the [-1, 1] grid entry (the main path's), then the pixel-plane "
+            "entry")
+        for n, c, hw in GATHER_CASES:
+            modes = ("zeros", "border") if c == 3 and hw == 512 else ("zeros",)
             img = torch.rand((n, c, hw, hw), generator=gen, device=dev)
             grid = _smooth_grid(n, hw, hw, gen, dev)
-            gx = unnormalize(grid[..., 0], hw)
-            gy = unnormalize(grid[..., 1], hw)
+            gx = unnormalize(grid[..., 0], hw).contiguous()
+            gy = unnormalize(grid[..., 1], hw).contiguous()
             oor = ((gx < 0) | (gx > hw - 1)).float().mean().item()
             for mode in modes:
-                got = gather_bilinear(img, gx, gy, mode)
-                want = gather_bilinear_ref(img, gx, gy, mode)
                 case = f"({n}, {c}, {hw}, {hw}) {mode}"
-                errs["gather_bilinear"] = max(errs["gather_bilinear"], compare(
-                    f"{case} (out of range {oor:.1%})", got, want,
-                    TOL["gather_f32"]))
+                before = gather_routes()
+                got = gather_bilinear_grid(img, grid, mode)
+                got_planes = gather_bilinear(img, gx, gy, mode)
+                route = {r: k - before[r] for r, k in gather_routes().items()}
+                if route != {"grid": 1, "planes": 1}:
+                    raise AssertionError(f"K3 {case} took the routes {route}")
+                errs["gather_bilinear"] = max(
+                    errs["gather_bilinear"],
+                    compare(f"{case} grid (out of range {oor:.1%})", got,
+                            gather_bilinear_grid_ref(img, grid, mode),
+                            TOL["gather_f32"]),
+                    compare(f"{case} planes", got_planes,
+                            gather_bilinear_ref(img, gx, gy, mode),
+                            TOL["gather_f32"]))
                 _record(times, "gather_bilinear", case,
-                        lambda: gather_bilinear(img, gx, gy, mode),
-                        lambda: gather_bilinear_ref(img, gx, gy, mode),
+                        lambda: gather_bilinear_grid(img, grid, mode),
+                        lambda: gather_bilinear_grid_ref(img, grid, mode),
                         lambda: F.grid_sample(img, grid, mode="bilinear",
                                               padding_mode=mode,
                                               align_corners=True),
-                        _nbytes(img, gx, gy, got), n * hw * hw * (8 * c + 12),
+                        _nbytes(img, grid, got), n * hw * hw * (8 * c + 12),
                         torch.float32)
+        _unwarp_kernel_cases(gen, errs, times)
 
-        log("[kernels] K4 gather_bilinear_grad (N, C, H, W): d/d(gx, gy) of "
-            "sum_c ct_c * sample_c, the training loss's backward")
+        log("[kernels] K4 gather_bilinear_grad (N, C, H, W): d/dgrid of "
+            "sum_c ct_c * sample_c at the [-1, 1] grid, the training loss's "
+            "backward")
         n, c, hw = 10, 2, 512
         img = torch.rand((n, c, hw, hw), generator=gen, device=dev)
         grid = _smooth_grid(n, hw, hw, gen, dev)
-        gx = unnormalize(grid[..., 0], hw)
-        gy = unnormalize(grid[..., 1], hw)
         ct = torch.randn((n, c, hw, hw), generator=gen, device=dev)
-        oor = ((gx < 0) | (gx > hw - 1)).float().mean().item()
+        oor = ((grid[..., 0].abs() > 1)).float().mean().item()
         for mode in ("zeros", "border"):
-            got = gather_bilinear_grad(img, gx, gy, ct, mode)
-            want = gather_bilinear_grad_ref(img, gx, gy, ct, mode)
+            got = gather_bilinear_grad(img, grid, ct, mode)
+            want = gather_bilinear_grad_grid_ref(img, grid, ct, mode)
             case = f"({n}, {c}, {hw}, {hw}) {mode}"
-            for axis, g, wnt in zip("xy", got, want):
-                bar = TOL["gather_grad_f32"] * max(1.0, wnt.abs().max().item())
-                errs["gather_bilinear_grad"] = max(
-                    errs["gather_bilinear_grad"],
-                    compare(f"{case} d/dg{axis} (out of range {oor:.1%})", g,
-                            wnt, bar))
+            bar = TOL["gather_grad_f32"] * max(1.0, want.abs().max().item())
+            errs["gather_bilinear_grad"] = max(
+                errs["gather_bilinear_grad"],
+                compare(f"{case} d/dgrid (out of range {oor:.1%})", got, want,
+                        bar))
             pad = {"zeros": 0, "border": 1}[mode]
             _record(times, "gather_bilinear_grad", case,
-                    lambda: gather_bilinear_grad(img, gx, gy, ct, mode),
-                    lambda: gather_bilinear_grad_ref(img, gx, gy, ct, mode),
+                    lambda: gather_bilinear_grad(img, grid, ct, mode),
+                    lambda: gather_bilinear_grad_grid_ref(img, grid, ct, mode),
                     lambda: torch.ops.aten.grid_sampler_2d_backward(
                         ct, img, grid, 0, pad, True, [False, True]),
-                    _nbytes(img, gx, gy, ct, *got), n * hw * hw * (16 * c + 20),
+                    _nbytes(img, grid, ct, got), n * hw * hw * (16 * c + 20),
                     torch.float32)
 
         log("[kernels] K5 gather2d (H, W) f32 at (M, N) int32 indices, bit "
@@ -632,7 +775,8 @@ def phase_kernels(state):
                                lambda *a: attention(*a, scale),
                                lambda *a: attention_ref(*a, scale),
                                (q, k, v), ct, bar)
-            errs["attention"] = max(errs["attention"], err)
+            key = "attention" if dt == bf16 else "attention_f32"
+            errs[key] = max(errs[key], err)
     for b, cin, cout, hw in ((10, 4, 64, 512), (10, 256, 256, 128)):
         for dt in (torch.float32, bf16):
             x = torch.randn((b, cin, hw, hw), generator=gen, device=dev).to(dt)
@@ -650,7 +794,8 @@ def phase_kernels(state):
                 lambda xx, ww, bb: conv3x3_ref(
                     xx, ww, torch.ones_like(bb), bb, 1, False),
                 (x, w, bi), ct, bar)
-            errs["conv3x3"] = max(errs["conv3x3"], err)
+            key = "conv3x3" if dt == bf16 else "conv3x3_f32"
+            errs[key] = max(errs[key], err)
     n, hw = 10, 512
     src = torch.rand((n, 2, hw, hw), generator=gen, device=dev)
     grid = _smooth_grid(n, hw, hw, gen, dev)
@@ -673,6 +818,9 @@ def phase_kernels(state):
     for (name, case), r in times.items():
         lib = f"{r['library_ms']:.4f} ms (kernel {r['ms'] / r['library_ms']:.2f}x " \
             f"of it)" if r["library_ms"] else "none"
+        if "yardstick_ms" in r:
+            lib += (f"; yardstick, the unfused path: {r['yardstick_ms']:.4f} "
+                    f"ms (kernel {r['ms'] / r['yardstick_ms']:.2f}x of it)")
         log(f"  {name} {case}: kernel {r['ms']:.4f} ms, plain twin "
             f"{r['plain_ms']:.4f} ms ({r['plain_ms'] / r['ms']:.2f}x), "
             f"library {lib}, bound {r['bound_ms']:.4g} ms ({r['bound_by']}, "
@@ -706,22 +854,28 @@ def _page(b: int, h: int, w: int, gen: torch.Generator) -> torch.Tensor:
     return (img[..., None] + noise).clamp(0, 1)
 
 
-# the serving path runs K1-K3 (K4 is the training loss's backward); one
-# shipped main-path run launches them exactly this often
-SERVE_LAUNCHES = {"attention": 42, "conv3x3": 261, "gather_bilinear": 3,
-                  "gather_bilinear_grad": 0, "gather2d": 0}
+# the serving path runs K1-K3 (K4 is the training loss's backward): K3 as
+# the two feature re-warps through its grid entry and the unwarp through
+# the fused kernel; one shipped main-path run launches them exactly this
+# often
+SERVE_LAUNCHES = {"attention": 42, "conv3x3": 261, "gather_bilinear": 2,
+                  "unwarp": 1, "gather_bilinear_grad": 0, "gather2d": 0}
 
 
 def _kernel_fns():
+    """Each kernel's wrapper, K3 by its two entries (the pixel planes, the
+    [-1, 1] grid) into one kernel body."""
     from dvd_tpu_torch.ops.kernels.attention import attention
     from dvd_tpu_torch.ops.kernels.conv3x3 import conv3x3
     from dvd_tpu_torch.ops.kernels.gather2d import gather2d
     from dvd_tpu_torch.ops.kernels.grid_sample import (gather_bilinear,
-                                                       gather_bilinear_grad)
+                                                       gather_bilinear_grad,
+                                                       gather_bilinear_grid)
+    from dvd_tpu_torch.ops.kernels.unwarp import unwarp
 
     return {"attention": attention, "conv3x3": conv3x3,
-            "gather_bilinear": gather_bilinear,
-            "gather_bilinear_grad": gather_bilinear_grad,
+            "gather_bilinear": (gather_bilinear, gather_bilinear_grid),
+            "unwarp": unwarp, "gather_bilinear_grad": gather_bilinear_grad,
             "gather2d": gather2d}
 
 
@@ -730,21 +884,40 @@ ROUTED = ("attention", "conv3x3")
 
 
 def reset_launches() -> None:
-    for fn in _kernel_fns().values():
-        fn.launches = 0
+    fns = _kernel_fns()
+    for fn in fns.values():
+        for f in fn if isinstance(fn, tuple) else (fn,):
+            f.launches = 0
     for name in ROUTED:
-        fn = _kernel_fns()[name]
-        fn.launches_wgmma = fn.launches_f32 = 0
+        fns[name].launches_wgmma = fns[name].launches_f32 = 0
 
 
 def read_launches() -> dict:
-    return {name: fn.launches for name, fn in _kernel_fns().items()}
+    return {name: sum(f.launches for f in fn) if isinstance(fn, tuple)
+            else fn.launches for name, fn in _kernel_fns().items()}
 
 
 def routes(name: str) -> dict:
     """A routed kernel's launches by route."""
     fn = _kernel_fns()[name]
     return {"wgmma": fn.launches_wgmma, "f32": fn.launches_f32}
+
+
+def gather_routes() -> dict:
+    """K3's launches by entry: the [-1, 1] grid or the pixel planes."""
+    planes, grid = _kernel_fns()["gather_bilinear"]
+    return {"grid": grid.launches, "planes": planes.launches}
+
+
+def check_gather_route(what: str) -> dict:
+    """Every K3 launch since the last reset took the grid entry (the main
+    paths' warps; the unwarps have their own kernel)."""
+    n, r = read_launches()["gather_bilinear"], gather_routes()
+    log(f"[{what}] K3 by entry {r} of {n} launches; fused unwarp "
+        f"{read_launches()['unwarp']}")
+    if r != {"grid": n, "planes": 0}:
+        raise AssertionError(f"{what}: K3 entries {r} of {n} launches")
+    return r
 
 
 def check_conv_route(what: str, dtype) -> dict:
@@ -848,6 +1021,7 @@ def phase_slice32(state):
             torch.cuda.synchronize()
             counts = read_launches()
             check_conv_route("slice32", torch.float32)
+            check_gather_route("slice32")
         runs[dev] = (flow.cpu(), image.cpu())
         log(f"[slice32] {dev}: {m.dit_variant} {m.compute_dtype} batch 1, "
             f"{m.source_size}^2, {cfg.diffusion.diffusion_steps} steps x "
@@ -894,6 +1068,7 @@ def phase_shipped(state):
     torch.cuda.synchronize()
     state["serve_launches"] = read_launches()
     check_conv_route("shipped", torch.bfloat16)
+    check_gather_route("shipped")
     k1_routes = routes("attention")
     log(f"[shipped] kernel launches in one main-path run: "
         f"{state['serve_launches']}; K1 by route {k1_routes}")
@@ -912,8 +1087,9 @@ def phase_shipped(state):
         raise AssertionError("shipped outputs not finite / flow outside [-1, 1]")
     log(f"[shipped] flow |max| {flow.abs().max().item():.4f}; unwarped "
         f"image range [{out.min().item():.3f}, {out.max().item():.3f}]")
-    shapes = _flow_vs_conv_twin(pipe, src, flow,
-                                _flow_vs_attention_twin(pipe, src, flow))
+    k1_bar = _flow_vs_attention_twin(pipe, src, flow)
+    shapes = _flow_vs_conv_twin(pipe, src, flow, k1_bar)
+    _tf32_default_run(pipe, src, flow)
     _time_conv_classes(shapes, state["label"])
 
     # warm timing, stage by stage (host clock around synchronised work)
@@ -950,18 +1126,18 @@ def phase_shipped(state):
     # the CLI's array function on a 600x450 page (the unwarp runs K3 at a
     # size the TPU kernel's gate rejects)
     page = (_page(1, 450, 600, gen)[0] * 255).round().numpy()
-    before = read_launches()["gather_bilinear"]
+    before = read_launches()["unwarp"]
     t0 = time.perf_counter()
     out_img, out_flow = dewarp_image(pipe, page, seed=SEED)
     torch.cuda.synchronize()
     if out_img.shape != (450, 600, 3) or out_flow.shape != (m.image_size, m.image_size, 2) \
             or not np.isfinite(out_img).all() or np.abs(out_flow).max() > 1:
         raise AssertionError("CLI outputs malformed")
-    if read_launches()["gather_bilinear"] <= before:
-        raise AssertionError("the CLI unwarp did not launch K3")
+    if read_launches()["unwarp"] <= before:
+        raise AssertionError("the CLI unwarp did not launch the fused kernel")
     log(f"[shipped] cli dewarp_image 600x450 page: {out_img.shape} in "
-        f"{time.perf_counter() - t0:.3f} s, K3 launched "
-        f"{read_launches()['gather_bilinear'] - before}x")
+        f"{time.perf_counter() - t0:.3f} s, the fused unwarp launched "
+        f"{read_launches()['unwarp'] - before}x")
 
 
 def _flow_vs_attention_twin(pipe, src, flow):
@@ -1072,6 +1248,47 @@ def _flow_vs_conv_twin(pipe, src, flow, k1_bar):
     return shapes
 
 
+def _tf32_default_run(pipe, src, flow_off):
+    """The shipped batch once more under torch's default TF32 switches
+    (``cudnn.allow_tf32`` True, ``cuda.matmul.allow_tf32`` False), as the
+    shipped entry points run it, against this phase's switch-off run from
+    the same x_T: U2NetP's soft mask d0 and the line UNet's ``outc`` (both
+    ``conv1x1_f32``, an f32 matmul that the cuDNN switch does not reach)
+    within one f32 rounding of their largest value (both are bf16 in the
+    shipped run, so any change would be a bf16 step: the bar asks for
+    equality), the flow within the ``flow_twin`` bar."""
+    from dvd_tpu_torch.ops.resize import resize_bilinear
+
+    per = pipe.cfg.model.perception_size
+
+    def run():
+        with torch.inference_mode():
+            xa = resize_bilinear(src.permute(0, 3, 1, 2).contiguous(),
+                                 (per, per), True).to(pipe.dtype).contiguous()
+            d0 = pipe.seg.msk(xa)[0].float()
+            outc = pipe.line(pipe.seg(xa)[0])[1].float()
+            flow = pipe.dewarp_flow(src, generator=torch.Generator(
+                device="cuda").manual_seed(SEED + 5))
+            torch.cuda.synchronize()
+        return d0, outc, flow
+
+    off = run()
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        log(f"[shipped] torch's default switches: cudnn.allow_tf32="
+            f"{torch.backends.cudnn.allow_tf32} cuda.matmul.allow_tf32="
+            f"{torch.backends.cuda.matmul.allow_tf32}")
+        on = run()
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    for name, a, b in (("U2NetP d0", on[0], off[0]),
+                       ("line UNet outc", on[1], off[1])):
+        compare(f"{name}, TF32 default vs off", a, b,
+                TOL["conv1x1_f32_rel"], rel=True)
+    compare("flow, TF32 default vs off (same weights and x_T)", on[2],
+            off[2], TOL["flow_twin"])
+
+
 def _time_conv_classes(shapes: Counter, label: str) -> None:
     """Every K2 shape class of one serving run, on fresh bf16 inputs: the
     kernel against its twin (the phase-2 bar), then its time beside
@@ -1136,15 +1353,18 @@ def _profile(pipe, src, gen, label, top=25):
     for key, us, n in rows[:top]:
         log(f"[profile]   {us / 1e3:9.3f} ms {us / 1e3 / busy:6.1%} x{n:<5d} "
             f"{key[:110]}")
-    if _kernel_shares(rows, busy, "run")["conv3x3_wgmma_kernel"] <= 0:
-        raise AssertionError("the profiled bf16 serving run shows no "
-                             "conv3x3_wgmma_kernel time")
+    shares = _kernel_shares(rows, busy, "run")
+    for entry in ("conv3x3_wgmma_kernel", "gather_bilinear_kernel",
+                  "unwarp_kernel"):
+        if shares[entry] <= 0:
+            raise AssertionError(f"the profiled bf16 serving run shows no "
+                                 f"{entry} time")
 
 
 # the profiler's kernel names of K1-K4 (a template's name ends in "<")
 KERNEL_ENTRIES = (("K1", "attention_wgmma_kernel"), ("K1", "attention_fwd_kernel"),
                   ("K2", "conv3x3_wgmma_kernel"), ("K2", "conv3x3_kernel"),
-                  ("K3", "gather_bilinear_kernel"),
+                  ("K3", "gather_bilinear_kernel"), ("K3", "unwarp_kernel"),
                   ("K4", "gather_bilinear_grad_kernel"))
 
 
@@ -1225,7 +1445,7 @@ def phase_train32(state):
         cfg, dev, generator=torch.Generator().manual_seed(SEED + 7), train=True)
         for dev in ("cpu", "cuda")}
     shift = _mask_logit_shift(pipes["cpu"], raw["source_image"])
-    runs = {}
+    runs, loss_warp = {}, {}
     for dev in ("cuda", "cpu"):
         pipe = pipes[dev]
         _no_dropout(pipe.dit)
@@ -1243,13 +1463,18 @@ def phase_train32(state):
         t0 = time.perf_counter()
         batch = build_device_batch(
             pipe, {k: v.to(dev) for k, v in raw.items()}, m.image_size)
-        grads, _, metrics = step.loss_and_grads(
-            train_state, batch, None, t=t, noise=noise,
-            rollout_noise=rollout_noise)
+        with _loss_warp_points(loss_warp, dev):
+            grads, _, metrics = step.loss_and_grads(
+                train_state, batch, None, t=t, noise=noise,
+                rollout_noise=rollout_noise)
         if dev == "cuda":
             torch.cuda.synchronize()
             counts = read_launches()
             check_conv_route("train32", torch.float32)
+            check_gather_route("train32")
+            state["train32_launches"] = dict(
+                counts, attention_f32=routes("attention")["f32"],
+                conv3x3_f32=routes("conv3x3")["f32"])
         names = list(train_state.named_params())
         runs[dev] = (metrics["loss"].item(),
                      {k: g.detach().cpu() for k, g in zip(names, grads)})
@@ -1258,6 +1483,14 @@ def phase_train32(state):
             f"{time.perf_counter() - t0:.2f} s (outconv bias shift "
             f"{shift:+.3f}, soft-mask margin {margin:.3f})")
     del pipes
+    log(f"[train32] the loss warp's points, card vs CPU: max |d| "
+        f"{loss_warp['max_d']:.3e} of the [-1, 1] grid (bar "
+        f"{TOL['train_points']:.0e}); {loss_warp['crossed']} of "
+        f"{loss_warp['n']} fell in another corner cell on the CPU and took "
+        f"the card's coordinates there for K4's twin")
+    if not loss_warp["max_d"] <= TOL["train_points"]:
+        raise AssertionError(f"train32 loss-warp points differ by "
+                             f"{loss_warp['max_d']:.3e}")
     log(f"[train32] kernel launches in the card run: {counts}")
     if min(counts[k] for k in TRAIN_KERNELS) <= 0:
         raise AssertionError(f"a kernel of the path did not launch: {counts}")
@@ -1279,6 +1512,52 @@ def phase_train32(state):
     log(f"[train32] {len(gp)} gradient tensors ({nz} nonzero) within "
         f"{TOL['train_grad']:.0e} x max(1, max|g|); the closest to its bar: "
         f"{worst[1]} at {worst[0]:.3f} of it")
+
+
+@contextlib.contextmanager
+def _loss_warp_points(record: dict, dev: str):
+    """While open, the loss warp's backward (K4 on the card, its twin on
+    the CPU; ``warp_const_src``, patched here, never in the package) is
+    recorded on the card and aligned on the CPU.
+
+    The bilinear gather's derivative jumps where a point crosses into
+    another corner cell: by the whole edge value where a corner leaves the
+    'zeros' padding (for the loss's 512^2 field and its cotangent about
+    1e-3, against gradients of 1e-2).  The card's and the CPU's points
+    differ by their f32 rounding through the DiT and the rollout (about
+    3e-5 of the grid), so now and then one lands on each side of a cell
+    edge and the two gradients differ by that jump, a measure-zero event
+    and no fault of either side.  So where the CPU's point is in another
+    cell than the card's, the CPU's K4 twin takes the card's point; every
+    other point, and the forward, stay the CPU's own.  The points
+    themselves are held to ``train_points``."""
+    from dvd_tpu_torch.ops import grid_sample as gs
+    from dvd_tpu_torch.ops.kernels.grid_sample import unnormalize
+
+    kernel = gs.gather_bilinear_grad
+
+    def cells(img, grid):
+        h, w = img.shape[-2:]
+        return torch.stack([torch.floor(unnormalize(grid[..., 0], w)),
+                            torch.floor(unnormalize(grid[..., 1], h))], -1)
+
+    def on_card(img, grid, ct, padding_mode="zeros"):
+        record["grid"], record["cells"] = grid.cpu(), cells(img, grid).cpu()
+        return kernel(img, grid, ct, padding_mode)
+
+    def on_cpu(img, grid, ct, padding_mode="zeros"):
+        crossed = (cells(img, grid) != record["cells"]).any(-1, keepdim=True)
+        record["max_d"] = (grid - record["grid"]).abs().max().item()
+        record["crossed"] = int(crossed.sum())
+        record["n"] = crossed.numel()
+        grid = torch.where(crossed, record["grid"], grid)
+        return kernel(img, grid, ct, padding_mode)
+
+    gs.gather_bilinear_grad = on_card if dev == "cuda" else on_cpu
+    try:
+        yield
+    finally:
+        gs.gather_bilinear_grad = kernel
 
 
 class StageSpans:
@@ -1399,6 +1678,7 @@ def phase_train(state):
         wall = time.perf_counter() - t0
         counts = read_launches()
         check_conv_route("train", torch.bfloat16)
+        check_gather_route("train")
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         files = sorted(os.listdir(os.path.join(ws, cfg.name)))
         # the EMA snapshot outlives the workspace: phase 8 serves it
@@ -1468,7 +1748,8 @@ def phase_train(state):
         log(f"[profile]   {us / 1e3:9.3f} ms {us / 1e3 / busy:6.1%} x{n:<5d} "
             f"{key[:110]}")
     shares = _kernel_shares(rows, busy, "step")
-    for entry in ("attention_wgmma_kernel", "conv3x3_wgmma_kernel"):
+    for entry in ("attention_wgmma_kernel", "conv3x3_wgmma_kernel",
+                  "gather_bilinear_kernel", "gather_bilinear_grad_kernel"):
         if shares[entry] <= 0:
             raise AssertionError(f"the profiled bf16 train step shows no "
                                  f"{entry} time")
@@ -1586,13 +1867,21 @@ def _dataset_weights(state, cfg):
 
 
 def _native_check(pipe):
-    """unwarp_native on the card (K3) against the CPU (the twin), two
-    pages of different sizes in a 1536^2 canvas, one smooth flow per page
-    in the compute dtype; TF32 off, then on."""
+    """unwarp_native on the card (the fused unwarp) against the CPU (the
+    plain composition), two pages of different sizes in a 1536^2 canvas,
+    one smooth flow per page in the compute dtype; TF32 off, then on.
+    The kernel's own coordinates: a ramp source whose channels are its
+    column and row index gives back, wherever all four corners are valid,
+    the pixel coordinate it sampled, held to the plain grid in [-1, 1]
+    canvas units at the grid's bar."""
     from dvd_tpu_torch.evaluation.driver import unwarp_u8
     from dvd_tpu_torch.evaluation.pipeline import native_grid, unwarp_native
+    from dvd_tpu_torch.ops.grid_sample import unnormalize
 
     p, hws = 1536, [(1500, 1100), (1200, 1536)]
+    idx = torch.arange(p, dtype=torch.float32)
+    ramp = torch.stack([idx[None, :].expand(p, p), idx[:, None].expand(p, p),
+                        torch.zeros((p, p))], -1)[None].repeat(2, 1, 1, 1)
     gen = torch.Generator().manual_seed(SEED + 11)
     pad = torch.zeros((2, p, p, 3), dtype=torch.uint8)
     for i, (h, w) in enumerate(hws):
@@ -1609,6 +1898,7 @@ def _native_check(pipe):
             grid = native_grid(dev[1], dev[2], p)
             img = unwarp_native(*dev)
             u8 = unwarp_u8(*dev)
+            coords = unwarp_native(ramp.cuda(), dev[1], dev[2])
             torch.cuda.synchronize()
         finally:
             torch.backends.cuda.matmul.allow_tf32 = False
@@ -1617,7 +1907,16 @@ def _native_check(pipe):
         for axis, g, want in zip("xy", grid, cpu[0]):
             compare(f"native grid {axis} card vs CPU, {tag}", g.cpu(), want,
                     TOL["native_grid"])
+        gx, gy = (unnormalize(g, p) for g in cpu[0])
+        inside = (gx >= 0) & (gx < p - 1) & (gy >= 0) & (gy < p - 1)
         for i, (h, w) in enumerate(hws):
+            keep = inside[i, :h, :w]
+            for axis, e, want in (("x", 0, cpu[0][0]), ("y", 1, cpu[0][1])):
+                got = coords[i, :h, :w, e].cpu() / (0.5 * (p - 1)) - 1.0
+                compare(f"fused unwarp's {axis} coordinates (ramp) {h}x{w} "
+                        f"vs the plain grid, {keep.float().mean().item():.1%} "
+                        f"of the page inside, {tag}", got[keep],
+                        want[i, :h, :w][keep], TOL["native_grid"])
             compare(f"native image {h}x{w} card vs CPU, {tag}",
                     img[i, :h, :w].cpu(), cpu[1][i, :h, :w],
                     TOL["native_image"])
@@ -1646,6 +1945,7 @@ def _driver_run(pipe, n_pages, out_dir, label, card):
     wall = time.perf_counter() - t0
     counts = read_launches()
     check_conv_route("dataset", torch.bfloat16)
+    check_gather_route("dataset")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     pred = os.path.join(out_dir, "dewarped_pred")
     maps = sorted(os.listdir(pred))
@@ -1714,7 +2014,8 @@ def phase_dataset(state):
     out = os.path.join(state["workdir"], "vis_hp")
     stats, counts, peak, ds = _driver_run(pipe, 100, os.path.join(out, "p100"),
                                           "main run", state["label"])
-    if min(counts[k] for k in ("attention", "conv3x3", "gather_bilinear")) <= 0:
+    if min(counts[k] for k in ("attention", "conv3x3", "gather_bilinear",
+                               "unwarp")) <= 0:
         raise AssertionError(f"a kernel of the path did not launch: {counts}")
     st = stats["stage_seconds_per_batch"]
     log(f"[dataset] steady state {stats['imgs_per_sec']} imgs/s over "
@@ -1744,18 +2045,20 @@ def main() -> int:
                       phase_train32, phase_train, phase_probe, phase_dataset):
             phase(state)
     kernels = []
-    for name, (src, replaces) in KERNELS.items():
+    launches = {"train": state["train_launches"], "serving": state["serve_launches"],
+                "train32": state["train32_launches"],
+                "probe": state["probe_launches"]}
+    for name, (src, replaces, run) in KERNELS.items():
         r = state["kernel_times"][(name, RECORD_CASE[name])]
-        launches = state["probe_launches"] if name == "gather2d" \
-            else state["train_launches"]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": launches[name],
-            "launches_serving": state["serve_launches"][name],
+            "launches": launches[run][name], "launches_from": run,
+            "launches_serving": state["serve_launches"].get(name, 0),
             "max_abs_err": state["kernel_errs"][name],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "case": RECORD_CASE[name],
+            **({"yardstick_ms": r["yardstick_ms"]} if "yardstick_ms" in r else {}),
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -12,9 +12,9 @@ Layout mirrors ``dvd_tpu``:
   dataclasses, flag names and defaults)
 - ``ops``         resize, grid_sample and ``warp_const_src``; ``ops.kernels``
   wraps the CUDA kernels in ``csrc/`` (K1 attention, K2 conv3x3, K3
-  bilinear gather, K4 its coordinate gradient, K5 the exact integer 2-D
-  gather), each beside its plain PyTorch twin, with autograd Functions
-  for the training path
+  bilinear gather and the fused unwarp built on it, K4 its coordinate
+  gradient, K5 the exact integer 2-D gather), each beside its plain
+  PyTorch twin, with autograd Functions for the training path
 - ``diffusion``   schedule tables, DDIM step, the sampling loop, the
   training rollout and losses
 - ``models``      DiT-S/2 + SATRN decoder, U2NetP/Seg, GeoTr mask branch,

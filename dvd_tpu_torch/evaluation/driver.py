@@ -37,7 +37,8 @@ import numpy as np
 import torch
 
 from dvd_tpu_torch.config import DvDConfig
-from dvd_tpu_torch.evaluation.pipeline import DewarpPipeline, unwarp_native
+from dvd_tpu_torch.evaluation.pipeline import DewarpPipeline
+from dvd_tpu_torch.ops.kernels.unwarp import unwarp
 
 
 def save_png(path: str, arr: np.ndarray) -> None:
@@ -75,9 +76,9 @@ def prefetched_batches(dataset, batch_size: int, depth: int = 2):
 def unwarp_u8(padded: torch.Tensor, hw: torch.Tensor,
               flow: torch.Tensor) -> torch.Tensor:
     """``unwarp_native`` -> uint8: round half to even (as ``jnp.round``),
-    clip to [0, 255], cast."""
-    out = unwarp_native(padded, hw, flow)
-    return torch.round(out).clamp_(0.0, 255.0).to(torch.uint8)
+    clip to [0, 255], cast; on a card inside the fused unwarp's one
+    launch."""
+    return unwarp(padded, flow, hw, out_u8=True)
 
 
 def _sync(device: torch.device) -> None:

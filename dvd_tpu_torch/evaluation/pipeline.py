@@ -16,9 +16,9 @@
 Public entry points keep the JAX layout: ``dewarp_flow`` takes
 (B, 512, 512, 3) in [0, 1] and returns (B, S, S, 2); the unwarps take
 NHWC sources and flows.  Inside, images are NCHW.  The kernels sit under
-stages 2-4 and the pyramid (K2), the DiT and SATRN attention (K1), and
-the feature re-warp and both unwarps (K3).  Weights are drawn from a
-seed or loaded from converted files
+stages 2-4 and the pyramid (K2), the DiT and SATRN attention (K1), the
+feature re-warp (K3) and both unwarps (the fused unwarp, one launch).
+Weights are drawn from a seed or loaded from converted files
 (``training/checkpoint.py:maybe_load_pipeline_weights``).
 
 Not ported yet (raise ``NotImplementedError``): the VGG conditioning
@@ -42,10 +42,9 @@ from dvd_tpu_torch.models.geotr import GeoTrSegInf
 from dvd_tpu_torch.models.layers import seeded_init_
 from dvd_tpu_torch.models.textline_unet import TextLineUNet
 from dvd_tpu_torch.models.u2net import Seg, seg_pyramid_to_latent
-from dvd_tpu_torch.ops.grid_sample import grid_sample, unnormalize
-from dvd_tpu_torch.ops.kernels.grid_sample import gather_bilinear
+from dvd_tpu_torch.ops.kernels.unwarp import native_grid, unwarp  # noqa: F401
 from dvd_tpu_torch.ops.resize import resize_bilinear
-from dvd_tpu_torch.utils.grids import UNWARP_SHRINK, flow_to_grid
+from dvd_tpu_torch.utils.grids import UNWARP_SHRINK
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -216,68 +215,11 @@ def unwarp_fixed(source: torch.Tensor, flow: torch.Tensor,
                  shrink: float = UNWARP_SHRINK) -> torch.Tensor:
     """Unwarp (B, H, W, C) ``source`` at its own size with the (B, S, S, 2)
     ``flow``: bilinear flow upsample (align_corners=True), the grid
-    ``((flow + base) * 2 - 1) * shrink``, then K3's zero-padded gather.
-    Any H x W (the TPU gate's tiling rules do not apply)."""
-    h, w = source.shape[1:3]
-    flow = flow.to(source.device, torch.float32)
-    flow_hw = resize_bilinear(flow.permute(0, 3, 1, 2), (h, w), True)
-    grid = flow_to_grid(flow_hw.permute(0, 2, 3, 1), shrink)
-    img = source.permute(0, 3, 1, 2).to(torch.float32).contiguous()
-    out = grid_sample(img, grid, padding_mode="zeros")
-    return out.permute(0, 2, 3, 1).to(source.dtype)
-
-
-def _upsample_axis(n_out: int, size: torch.Tensor, s: int):
-    """Two-tap bilinear weights, align_corners=True with the border clamp,
-    of an axis of ``s`` flow pixels upsampled to each image's ``size``
-    (B,) samples, evaluated at the canvas positions 0..n_out-1: (i0, i1)
-    int64 and (w0, w1) f32, each (B, n_out).  The taps and weights of
-    ``dvd_tpu``'s per-image interpolation matrices, as lerps, not a
-    matmul, so no TF32 or bf16 product can round the coordinates."""
-    pos = torch.arange(n_out, dtype=torch.float32, device=size.device)[None]
-    src = (pos * (s - 1.0) / (size[:, None] - 1.0)).clamp(0.0, s - 1.0)
-    i0 = src.floor()
-    frac = src - i0
-    i0 = i0.long()
-    return i0, (i0 + 1).clamp(max=s - 1), 1.0 - frac, frac
-
-
-def native_grid(hw: torch.Tensor, flow: torch.Tensor, canvas: int,
-                shrink: float = UNWARP_SHRINK):
-    """The sampling grid of :func:`unwarp_native` in canvas coordinates:
-    two (B, P, P) f32 planes (x, y) in [-1, 1] of the (P, P) canvas.
-
-    Per image of true size (h, w) = ``hw[b]``: the (S, S, 2) flow is
-    upsampled to (h, w) separably (``dvd_tpu/evaluation/pipeline.py``
-    :516-527), the grid ``((flow + base) * 2 - 1) * shrink`` is built on
-    (h, w) (:529-532) and mapped from [-1, 1]-in-(h, w) into the canvas
-    (:536-538).  Canvas pixels beyond (h, w) are don't-care."""
-    flow = flow.to(torch.float32)
-    b, s = flow.shape[:2]
-    dev = flow.device
-    h = hw[:, 0].to(dev, torch.float32)
-    w = hw[:, 1].to(dev, torch.float32)
-    batch = torch.arange(b, device=dev)[:, None]
-    y0, y1, wy0, wy1 = _upsample_axis(canvas, h, s)
-    x0, x1, wx0, wx1 = _upsample_axis(canvas, w, s)
-    rows = (flow[batch, y0] * wy0[..., None, None]
-            + flow[batch, y1] * wy1[..., None, None])        # (B, P, S, 2)
-    bb = batch[:, :, None]
-    flow_native = (rows[bb, torch.arange(canvas, device=dev)[None, :, None],
-                        x0[:, None]] * wx0[:, None, :, None]
-                   + rows[bb, torch.arange(canvas, device=dev)[None, :, None],
-                          x1[:, None]] * wx1[:, None, :, None])  # (B, P, P, 2)
-    del rows
-    pos = torch.arange(canvas, dtype=torch.float32, device=dev)
-    h, w = h[:, None, None], w[:, None, None]
-    samp_x = ((flow_native[..., 0] + pos[None, None, :] / (w - 1.0))
-              * 2.0 - 1.0) * shrink
-    samp_y = ((flow_native[..., 1] + pos[None, :, None] / (h - 1.0))
-              * 2.0 - 1.0) * shrink
-    del flow_native
-    px = (samp_x + 1.0) * (w - 1.0) / (canvas - 1.0) - 1.0
-    py = (samp_y + 1.0) * (h - 1.0) / (canvas - 1.0) - 1.0
-    return px, py
+    ``((flow + base) * 2 - 1) * shrink``, then K3's zero-padded gather; the
+    result in the source's dtype.  Any H x W (the TPU gate's tiling rules
+    do not apply).  One launch of the fused unwarp on a card
+    (``ops/kernels/unwarp.py``)."""
+    return unwarp(source, flow, None, shrink).to(source.dtype)
 
 
 @torch.inference_mode()
@@ -291,16 +233,9 @@ def unwarp_native(source_padded: torch.Tensor, hw: torch.Tensor,
     ``source_padded`` (B, P, P, C), uint8 or float, holds each page at
     the top left; ``hw`` (B, 2) int gives each page's true (h, w);
     ``flow`` (B, S, S, 2) is the offset field, any float dtype (cast to
-    f32).  Returns (B, P, P, C) f32 in the source's value range, from
-    K3's zero-padded gather at the :func:`native_grid` coordinates; pixels
-    beyond (h, w) are don't-care.  One call serves every page size: no
-    row chunking, K3 takes any shape."""
-    p = source_padded.shape[1]
-    px, py = native_grid(hw, flow.to(source_padded.device), p, shrink)
-    img = source_padded.permute(0, 3, 1, 2).to(torch.float32).contiguous()
-    gx = unnormalize(px, p).contiguous()
-    del px
-    gy = unnormalize(py, p).contiguous()
-    del py
-    out = gather_bilinear(img, gx, gy, "zeros")
-    return out.permute(0, 2, 3, 1)
+    f32).  Returns (B, P, P, C) f32 in the source's value range, K3's
+    zero-padded gather at the :func:`native_grid` coordinates; pixels
+    beyond (h, w) are don't-care.  One call serves every page size: on a
+    card it is one launch of the fused unwarp (``ops/kernels/unwarp.py``),
+    on the CPU the plain composition."""
+    return unwarp(source_padded, flow, hw, shrink)

@@ -205,8 +205,15 @@ def conv3x3_folded(conv: nn.Conv2d, bn: Optional[BatchNorm], x: torch.Tensor,
 
 
 def conv1x1_f32(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
-    """1x1 conv + bias in f32, result in x's dtype (``conv1x1_planar``)."""
-    return F.conv2d(x.float(), conv.weight.float(), conv.bias.float()).to(x.dtype)
+    """1x1 conv + bias in f32, result in x's dtype (``conv1x1_planar``): an
+    f32 matmul over the channels, as the reference's f32 einsum.  A cuDNN
+    f32 convolution would round to TF32 under torch's default
+    ``cudnn.allow_tf32=True``; a matmul stays f32 (``cuda.matmul.allow_tf32``
+    is False by default)."""
+    b, c, h, w = x.shape
+    y = torch.matmul(conv.weight.float().reshape(-1, c),
+                     x.float().reshape(b, c, h * w))
+    return (y + conv.bias.float()[:, None]).reshape(b, -1, h, w).to(x.dtype)
 
 
 # layers that training initialises to zero (the DiT's adaLN-zero gates and

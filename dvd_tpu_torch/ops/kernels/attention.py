@@ -9,9 +9,11 @@ wrapper reads q/k/v through their (b, h, t) strides, so the
 non-contiguous ``split_heads`` views go to the kernel without a copy; the
 last (Dh) dimension must be contiguous, and for bf16 each base pointer
 16-byte aligned and each stride a multiple of 8 elements (the kernel's
-16-byte async copies).  The output is allocated as a (B, T, H, Dh) buffer
-and returned as its (B, H, T, Dh) view, so ``merge_heads`` is a free
-reshape.
+16-byte async copies).  The output is allocated as a (B, T, H, Dh)
+buffer and returned as its (B, H, T, Dh) view, so ``merge_heads`` is a
+free reshape.  A head dim without a kernel instance (up to 256) is
+zero-padded to the next one (fresh, aligned copies) and the output sliced
+back.
 
 When a gradient is needed, ``attention`` goes through an autograd
 Function: forward K1, backward ``attention_bwd``, the f32 recompute of
@@ -30,7 +32,8 @@ from dvd_tpu_torch.ops.kernels import build
 from dvd_tpu_torch.utils.dtypes import at_least_f32
 
 # head dims with a kernel (DVD_FOR_EACH_DH in both sources): the mini
-# test DiT (16), DiT-S/B/L (64), the SATRN decoder over 2-4 streams (64 * k)
+# test DiT (16), DiT-S/B/L (64), the SATRN decoder over 2-4 streams (64 * k);
+# any other head dim up to 256 is zero-padded to the next (kernel_head_dim)
 HEAD_DIMS = (16, 64, 128, 192, 256)
 # CUDA entry by dtype
 _ENTRIES = {torch.float32: "dvd_attention_fwd",
@@ -60,11 +63,10 @@ def _check(q, k, v):
     b, h, _, dh = q.shape
     if k.shape[0] != b or k.shape[1] != h or k.shape[3] != dh:
         raise ValueError(f"attention: q {tuple(q.shape)} vs k {tuple(k.shape)}")
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"attention: head dim {dh} not in {HEAD_DIMS}")
+    kernel_head_dim(dh)
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("attention: the head dim must be contiguous")
-    if q.dtype == torch.bfloat16:
+    if q.dtype == torch.bfloat16 and dh in HEAD_DIMS:
         for name, t in zip("qkv", (q, k, v)):
             if t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3]):
                 raise ValueError(
@@ -72,6 +74,29 @@ def _check(q, k, v):
                     f"{t.data_ptr() % 16} with strides {t.stride()}; the "
                     "kernel takes 16-byte aligned bases and strides that "
                     "are multiples of 8")
+
+
+def kernel_head_dim(dh: int) -> int:
+    """The smallest head dim with a kernel instance that holds ``dh``.  A
+    head dim without an instance of its own (DiT-XL's 72) is served as the
+    reference's kernel serves every head dim, zero-padded (it pads Dh to a
+    multiple of 128, ``dvd_tpu/ops/pallas/attention.py:61, 73-75``): zero
+    columns change neither q k^T nor the kept columns of P V."""
+    for d in HEAD_DIMS:
+        if d >= dh:
+            return d
+    raise ValueError(f"attention: head dim {dh} above the largest kernel "
+                     f"head dim {HEAD_DIMS[-1]}")
+
+
+def pad_head_dim(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """q, k, v zero-padded along the head dim to :func:`kernel_head_dim`
+    (the tensors themselves when it already has an instance)."""
+    dh = q.shape[-1]
+    pad = kernel_head_dim(dh) - dh
+    if not pad:
+        return q, k, v
+    return tuple(torch.nn.functional.pad(t, (0, pad)) for t in (q, k, v))
 
 
 def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -119,6 +144,8 @@ def _forward(q, k, v, scale: float) -> torch.Tensor:
     if q.device.type == "cpu":
         return attention_ref(q, k, v, scale)
     _check(q, k, v)
+    dh_in = q.shape[-1]
+    q, k, v = pad_head_dim(q, k, v)
     b, h, tq, dh = q.shape
     tk = k.shape[2]
     out = torch.empty((b, tq, h, dh), dtype=q.dtype,
@@ -136,7 +163,7 @@ def _forward(q, k, v, scale: float) -> torch.Tensor:
         attention.launches_wgmma += 1
     else:
         attention.launches_f32 += 1
-    return out
+    return out[..., :dh_in] if dh != dh_in else out
 
 
 attention.launches = 0

@@ -34,8 +34,8 @@ PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("attention.cu", "attention_wgmma.cu", "conv3x3.cu",
-           "conv3x3_wgmma.cu", "grid_sample.cu", "gather_probe.cu")
-HEADERS = ("common.cuh", "hopper.cuh")
+           "conv3x3_wgmma.cu", "grid_sample.cu", "unwarp.cu", "gather_probe.cu")
+HEADERS = ("common.cuh", "hopper.cuh", "bilinear.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -60,9 +60,13 @@ SIGNATURES = {
     "dvd_conv3x3": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "dvd_conv3x3_wgmma": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "dvd_conv3x3_wgmma_plan": [_I, _I, _I, _I, _I, _I, _P],
-    "dvd_gather_bilinear": [_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _I, _P],
-    "dvd_gather_bilinear_grad": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                 _L, _L, _I, _P],
+    "dvd_gather_bilinear": [_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _I, _I,
+                            _I, _P],
+    "dvd_gather_bilinear_plan": [_I, _I, _L, _P],
+    "dvd_gather_bilinear_grad": [_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _I,
+                                 _I, _P],
+    "dvd_unwarp": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I,
+                   _P],
     "dvd_gather2d": [_P, _P, _P, _P, _I, _I, _L, _P],
 }
 

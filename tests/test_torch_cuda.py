@@ -16,17 +16,19 @@ are checked against the autograd of the plain versions.
 import pytest
 import torch
 
-from dvd_tpu_torch.evaluation.pipeline import native_grid, unwarp_native
+from dvd_tpu_torch.evaluation.pipeline import (native_grid, unwarp_fixed,
+                                               unwarp_native)
+from dvd_tpu_torch.models.layers import conv1x1_f32
 from dvd_tpu_torch.ops.grid_sample import unnormalize, warp_const_src
 from dvd_tpu_torch.ops.kernels.attention import HEAD_DIMS, attention, attention_ref
 from dvd_tpu_torch.ops.kernels.conv3x3 import (conv3x3, conv3x3_ref,
                                                conv3x3_trainable,
                                                k_major_weights, wgmma_plan)
 from dvd_tpu_torch.ops.kernels.gather2d import gather2d, gather2d_ref
-from dvd_tpu_torch.ops.kernels.grid_sample import (gather_bilinear,
-                                                   gather_bilinear_grad,
-                                                   gather_bilinear_grad_ref,
-                                                   gather_bilinear_ref)
+from dvd_tpu_torch.ops.kernels.grid_sample import (
+    gather_bilinear, gather_bilinear_grad, gather_bilinear_grad_grid_ref,
+    gather_bilinear_grid, gather_bilinear_grid_ref, gather_bilinear_ref)
+from dvd_tpu_torch.ops.kernels.unwarp import unwarp, unwarp_ref
 
 pytestmark = pytest.mark.cuda
 
@@ -165,24 +167,39 @@ def test_conv3x3_wgmma_kernel(dev, cin, cout, hw, dil, mt, relu):
     assert plan["mt"] == mt and plan["smem"] <= 232448
 
 
+# C: one group per channel up to 4, groups of 8 above (5 and 257 leave a
+# ragged last group); P x Q: ragged (99, 199) and multiples of 4 (vector
+# loads and stores); coordinates up to 1e9 pixels out of range
 @pytest.mark.parametrize("padding_mode", ["zeros", "border"])
-@pytest.mark.parametrize("shape", [(2, 3, 13, 17, 9, 11), (1, 5, 7, 129, 3, 200)])
-def test_gather_kernel(dev, padding_mode, shape):
-    n, c, h, w, p, q = shape
+@pytest.mark.parametrize("c", [1, 2, 3, 5, 256, 257])
+@pytest.mark.parametrize("pq", [(9, 11), (3, 200), (32, 64)])
+def test_gather_kernel(dev, padding_mode, c, pq):
+    """Both entries (the [-1, 1] grid and the pixel planes) of K3."""
+    n, h, w = 2, 13, 17
+    p, q = pq
     g = _gen()
     img = torch.rand(n, c, h, w, generator=g).to(dev)
-    gx = (torch.rand(n, p, q, generator=g) * (w + 6) - 3).to(dev)
-    gy = (torch.rand(n, p, q, generator=g) * (h + 6) - 3).to(dev)
-    before = gather_bilinear.launches
-    got = gather_bilinear(img, gx, gy, padding_mode)
-    assert gather_bilinear.launches == before + 1
-    torch.testing.assert_close(got, gather_bilinear_ref(img, gx, gy, padding_mode),
-                               rtol=0, atol=1e-5)
+    grid = torch.rand(n, p, q, 2, generator=g) * 2.8 - 1.4
+    grid[0, 0, :3] = torch.tensor([[1e9, -1e9], [-1e9, 3.0], [2.0, 1e9]])
+    grid = grid.to(dev)
+    gx = unnormalize(grid[..., 0], w).contiguous()
+    gy = unnormalize(grid[..., 1], h).contiguous()
+    before = (gather_bilinear_grid.launches, gather_bilinear.launches)
+    got = gather_bilinear_grid(img, grid, padding_mode)
+    got_planes = gather_bilinear(img, gx, gy, padding_mode)
+    assert (gather_bilinear_grid.launches, gather_bilinear.launches) == (
+        before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(
+        got, gather_bilinear_grid_ref(img, grid, padding_mode), rtol=0,
+        atol=1e-5)
+    torch.testing.assert_close(
+        got_planes, gather_bilinear_ref(img, gx, gy, padding_mode), rtol=0,
+        atol=1e-5)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     g = _gen()
-    q = torch.randn(1, 2, 8, 24, generator=g).to(dev)      # Dh 24: no kernel
+    q = torch.randn(1, 2, 8, 264, generator=g).to(dev)     # Dh > 256
     with pytest.raises(ValueError):
         attention(q, q, q)
     buf = torch.randn(1 + 2 * 8 * 64, generator=g).to(dev, torch.bfloat16)
@@ -210,32 +227,40 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     img = torch.rand(1, 2, 4, 4, generator=g).to(dev)
     with pytest.raises(TypeError):
         gather_bilinear(img.half(), img[:, 0], img[:, 1])
-    gx = img[:, 0].contiguous()
+    grid = img.permute(0, 2, 3, 1).contiguous()              # (1, 4, 4, 2)
+    with pytest.raises(ValueError):                         # K3: strided grid
+        gather_bilinear_grid(img, img.permute(0, 2, 3, 1))
     with pytest.raises(TypeError):                          # K4: f64 ct
-        gather_bilinear_grad(img, gx, gx, img.double())
+        gather_bilinear_grad(img, grid, img.double())
     with pytest.raises(ValueError):                         # K4: ct shape
-        gather_bilinear_grad(img, gx, gx, img[:, :1].contiguous())
+        gather_bilinear_grad(img, grid, img[:, :1].contiguous())
     with pytest.raises(ValueError):                         # K4: strided
-        gather_bilinear_grad(img, gx.transpose(1, 2), gx, img)
+        gather_bilinear_grad(img, grid.transpose(1, 2), img)
     with pytest.raises(ValueError):                         # K4: mixed devices
-        gather_bilinear_grad(img, gx, gx, img.cpu())
+        gather_bilinear_grad(img, grid, img.cpu())
+    page = torch.zeros(1, 8, 8, 2, dtype=torch.uint8, device=dev)
+    with pytest.raises(ValueError):                         # unwarp: C 2
+        unwarp(page, torch.zeros(1, 4, 4, 2, device=dev))
 
 
+# C 1-4 (unrolled) and 5 (the run-time loop); ragged and vector P x Q
 @pytest.mark.parametrize("padding_mode", ["zeros", "border"])
 @pytest.mark.parametrize("shape", [(2, 3, 13, 17, 9, 11), (1, 2, 7, 129, 3, 200),
-                                   (3, 1, 64, 64, 31, 33)])
+                                   (3, 1, 64, 64, 31, 33), (2, 4, 20, 24, 16, 8),
+                                   (1, 5, 9, 10, 8, 12)])
 def test_gather_grad_kernel(dev, padding_mode, shape):
+    """K4 on the [-1, 1] grid: d/dgrid, (N, P, Q, 2)."""
     n, c, h, w, p, q = shape
     g = _gen()
     img = torch.rand(n, c, h, w, generator=g).to(dev)
-    gx = (torch.rand(n, p, q, generator=g) * (w + 6) - 3).to(dev)
-    gy = (torch.rand(n, p, q, generator=g) * (h + 6) - 3).to(dev)
+    grid = (torch.rand(n, p, q, 2, generator=g) * 2.8 - 1.4).to(dev)
     ct = torch.randn(n, c, p, q, generator=g).to(dev)
     before = gather_bilinear_grad.launches
-    got = gather_bilinear_grad(img, gx, gy, ct, padding_mode)
+    got = gather_bilinear_grad(img, grid, ct, padding_mode)
     assert gather_bilinear_grad.launches == before + 1
-    for a, b in zip(got, gather_bilinear_grad_ref(img, gx, gy, ct, padding_mode)):
-        torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+    want = gather_bilinear_grad_grid_ref(img, grid, ct, padding_mode)
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-5 * max(1.0, want.abs().max().item()))
 
 
 def _grads(fn, inputs, ct):
@@ -352,3 +377,123 @@ def test_unwarp_native_on_the_card(dev, tf32):
     for i, (h, w) in enumerate(hw.tolist()):
         torch.testing.assert_close(got[i, :h, :w], want[i, :h, :w],
                                    rtol=0, atol=0.5)
+
+
+def _pages(hws, p, c, dtype, g):
+    """A (B, p, p, c) canvas with seeded pages of sizes ``hws`` at the top
+    left (uint8 levels, or f32 on [0, 255])."""
+    pad = torch.zeros(len(hws), p, p, c)
+    for i, (h, w) in enumerate(hws):
+        pad[i, :h, :w] = (torch.rand(h, w, c, generator=g) * 255).round()
+    return pad.to(dtype)
+
+
+# odd canvas and page widths (the scalar tail), a canvas whose pixel count
+# is a multiple of 4 (whole-word stores), one and four channels
+@pytest.mark.parametrize("p,hws,c", [(97, [(97, 61), (40, 97)], 3),
+                                     (128, [(100, 128), (128, 77)], 3),
+                                     (45, [(45, 45), (31, 17)], 1),
+                                     (64, [(64, 50), (33, 64)], 4)])
+@pytest.mark.parametrize("src_dtype", [torch.uint8, torch.float32])
+def test_unwarp_native_kernel(dev, p, hws, c, src_dtype):
+    """The fused unwarp against its plain version: f32 out within 0.5 on
+    [0, 255], uint8 out within 1 level (a sum that lands on .5 may round
+    the other way)."""
+    g = _gen()
+    pad = _pages(hws, p, c, src_dtype, g)
+    hw = torch.tensor(hws, dtype=torch.int32)
+    flow = (torch.rand(2, 16, 16, 2, generator=g) - 0.5) * 0.1
+    before = unwarp.launches
+    got = unwarp(pad.to(dev), flow.to(dev), hw.to(dev)).cpu()
+    got_u8 = unwarp(pad.to(dev), flow.to(dev), hw.to(dev), out_u8=True).cpu()
+    assert unwarp.launches == before + 2 and got_u8.dtype == torch.uint8
+    want = unwarp_ref(pad, flow, hw)
+    want_u8 = unwarp_ref(pad, flow, hw, out_u8=True)
+    for i, (h, w) in enumerate(hws):
+        torch.testing.assert_close(got[i, :h, :w], want[i, :h, :w], rtol=0,
+                                   atol=0.5)
+        d = (got_u8[i, :h, :w].int() - want_u8[i, :h, :w].int()).abs()
+        assert d.max().item() <= 1
+
+
+@pytest.mark.parametrize("hw", [(45, 60), (512, 512), (33, 130)])
+def test_unwarp_fixed_kernel(dev, hw):
+    """``unwarp_fixed`` through the fused kernel: the page at its own
+    size, H != W and odd sizes, against the plain composition.  There the
+    flow is resized by a matmul and the base grid comes from a vectorised
+    linspace, either of which may put a coordinate one f32 ulp away (about
+    3e-5 px at 512), which a unit-gradient random page turns into as much
+    of value: 1e-4 on [0, 1]."""
+    g = _gen()
+    src = torch.rand(2, *hw, 3, generator=g)
+    flow = (torch.rand(2, 64, 64, 2, generator=g) - 0.5) * 0.1
+    before = unwarp.launches
+    got = unwarp_fixed(src.to(dev), flow.to(dev)).cpu()
+    assert unwarp.launches == before + 1
+    torch.testing.assert_close(got, unwarp_fixed(src, flow), rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("p,hws", [(97, [(97, 61), (40, 97)]),
+                                   (256, [(255, 200), (256, 256)])])
+def test_unwarp_coordinates_through_a_ramp(dev, p, hws):
+    """The kernel's coordinates: a source whose channels are its own column
+    and row index returns, wherever all four corners are valid, the pixel
+    coordinate it sampled; in [-1, 1] canvas units it meets the plain
+    ``native_grid`` within 1e-5 with no extra output."""
+    g = _gen()
+    idx = torch.arange(p, dtype=torch.float32)
+    ramp = torch.stack([idx[None, :].expand(p, p), idx[:, None].expand(p, p),
+                        torch.zeros(p, p)], -1)[None].repeat(2, 1, 1, 1)
+    hw = torch.tensor(hws, dtype=torch.int32)
+    flow = (torch.rand(2, 16, 16, 2, generator=g) - 0.5) * 0.1
+    got = unwarp_native(ramp.to(dev), hw.to(dev), flow.to(dev)).cpu()
+    px, py = native_grid(hw, flow, p)
+    gx, gy = unnormalize(px, p), unnormalize(py, p)
+    inside = (gx >= 0) & (gx < p - 1) & (gy >= 0) & (gy < p - 1)
+    for i, (h, w) in enumerate(hws):
+        keep = inside[i, :h, :w]
+        assert keep.float().mean() > 0.5
+        for e, want in ((0, px), (1, py)):
+            coord = got[i, :h, :w, e] / (0.5 * (p - 1)) - 1.0
+            torch.testing.assert_close(coord[keep], want[i, :h, :w][keep],
+                                       rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype,bar", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_attention_head_dim_72(dev, dtype, bar):
+    """DiT-XL's head dim, 72, zero-padded to the 128 instance of the route
+    its dtype takes; scale 1/sqrt(72)."""
+    g = _gen()
+    q, k, v = (torch.randn(2, 16, t_, 72, generator=g).to(dev, dtype)
+               for t_ in (100, 130, 130))
+    before, (wgmma, f32) = attention.launches, _routes()
+    got = attention(q, k, v)
+    assert attention.launches == before + 1 and got.shape == q.shape
+    assert _routes() == ((wgmma + 1, f32) if dtype == torch.bfloat16
+                         else (wgmma, f32 + 1))
+    want = attention_ref(q, k, v, 72 ** -0.5)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=bar * max(1.0, want.float().abs().max().item()))
+
+
+def test_conv1x1_f32_ignores_tf32(dev):
+    """``conv1x1_f32`` (U2NetP's ``outconv``, the line UNet's ``outc``) is
+    an f32 matmul: the same bits with cuDNN's TF32 switch on and off, and
+    within f32 rounding of a float64 reference (a TF32 convolution keeps
+    about three decimal digits)."""
+    g = _gen()
+    conv = torch.nn.Conv2d(64, 1, 1).to(dev)
+    x = torch.randn(2, 64, 31, 47, generator=g).to(dev)
+    outs = []
+    for tf32 in (False, True):
+        torch.backends.cudnn.allow_tf32 = tf32
+        try:
+            outs.append(conv1x1_f32(conv, x))
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+    assert torch.equal(outs[0], outs[1])
+    want = torch.nn.functional.conv2d(x.double(), conv.weight.double(),
+                                      conv.bias.double())
+    torch.testing.assert_close(outs[1].double(), want, rtol=0,
+                               atol=1e-5 * want.abs().max().item())

@@ -3,19 +3,26 @@ the card) against the TPU Pallas kernel it replaces, run in interpret mode
 as the JAX package's own tests run it.  f32, and attention also in bf16,
 the dtype it is served in; tolerances per case."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 import test_torch_common  # noqa: F401  (sets torch to 1 thread)
+from dvd_tpu.ops.grid_sample import _warp_const_src_pallas_interpret
 from dvd_tpu.ops.pallas.attention import fused_attention
-from dvd_tpu.ops.pallas.grid_sample import gather_bilinear_planar
+from dvd_tpu.ops.pallas.grid_sample import (gather_bilinear_grad_planar,
+                                            gather_bilinear_planar,
+                                            grid_sample_pallas)
 from dvd_tpu.ops.pallas.planar_conv import conv3x3_planar, pad_p
-from dvd_tpu_torch.ops.kernels.attention import attention_ref
+from dvd_tpu_torch.ops.kernels.attention import (attention_ref,
+                                                 kernel_head_dim, pad_head_dim)
 from dvd_tpu_torch.ops.kernels.conv3x3 import conv3x3_ref
-from dvd_tpu_torch.ops.kernels.grid_sample import gather_bilinear_ref
-from test_torch_common import t
+from dvd_tpu_torch.ops.kernels.grid_sample import (gather_bilinear_grad,
+                                                   gather_bilinear_grid,
+                                                   gather_bilinear_ref)
+from test_torch_common import nchw, t
 
 
 ATTENTION_CASES = [
@@ -23,7 +30,9 @@ ATTENTION_CASES = [
     ((1, 2, 64, 64), 64, 1 / 8),       # DiT-S/2 heads, scale 1/8
     ((1, 1, 32, 256), 32, 1 / 16),     # SATRN heads, scale 1/16
     ((1, 2, 40, 64), 96, 1 / 8),       # Tq != Tk (Tk a multiple of 8, as
-]                                      # the Pallas kernel asserts)
+                                       # the Pallas kernel asserts)
+    ((1, 2, 48, 72), 48, None),        # DiT-XL heads (Dh 72, padded to 128
+]                                      # by both kernels)
 
 
 @pytest.mark.parametrize("shape_q,tk,scale", ATTENTION_CASES)
@@ -139,3 +148,83 @@ def test_gather_twin_matches_pallas(padding_mode):
         padding_mode=padding_mode, interpret=True))
     got = gather_bilinear_ref(t(img), t(gx), t(gy), padding_mode).numpy()
     np.testing.assert_allclose(got, want, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_head_dim_72_zero_padding_is_exact(dtype):
+    """DiT-XL's head dim 72 has no kernel instance: the wrapper pads q, k
+    and v with zero columns to 128 and slices the output.  The padded
+    attention at scale 1/sqrt(72), never 1/sqrt(128), is the Dh 72 one:
+    zero columns add nothing to q k^T or to the kept columns of P V (the
+    f32 sums may run in another order: 1e-6; in bf16 the same one ulp)."""
+    assert kernel_head_dim(72) == 128 and kernel_head_dim(64) == 64
+    g = torch.Generator().manual_seed(72)
+    q, k, v = (torch.randn(2, 16, n, 72, generator=g).to(dtype)
+               for n in (40, 56, 56))
+    qp, kp, vp = pad_head_dim(q, k, v)
+    assert qp.shape[-1] == 128 and not qp[..., 72:].any()
+    got = attention_ref(qp, kp, vp, 72 ** -0.5)[..., :72]
+    want = attention_ref(q, k, v, 72 ** -0.5)
+    atol = 1e-6 if dtype == torch.float32 else \
+        2.0 ** (np.floor(np.log2(want.float().abs().max().item())) - 7)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("padding_mode", ["zeros", "border"])
+def test_gather_grid_entry_matches_pallas(padding_mode):
+    """K3's grid entry (its plain path on the CPU) against the JAX
+    package's ``grid_sample_pallas`` in interpret mode: the [-1, 1] grid
+    unnormalised in f32, then the gather, at shapes the TPU kernel tiles;
+    coordinates reach out of range on every side."""
+    rng = np.random.RandomState(7)
+    img = rng.rand(2, 16, 128, 3).astype(np.float32)            # NHWC
+    grid = rng.uniform(-1.1, 1.1, (2, 8, 128, 2)).astype(np.float32)
+    want = np.asarray(grid_sample_pallas(
+        jnp.asarray(img), jnp.asarray(grid), padding_mode=padding_mode,
+        interpret=True))
+    got = gather_bilinear_grid(nchw(img), t(grid), padding_mode)
+    np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), want,
+                               atol=1e-6)
+
+
+def _off_integers(x, margin=0.02):
+    """Pixel coordinates pushed at least ``margin`` away from the integers,
+    where bilinear sampling has its kink."""
+    frac = x - np.floor(x)
+    x = np.where(frac < margin, x + margin, x)
+    return np.where(frac > 1 - margin, x - margin, x).astype(np.float32)
+
+
+@pytest.mark.parametrize("padding_mode", ["zeros", "border"])
+def test_gather_grad_grid_layout_matches_dvd_tpu(padding_mode):
+    """K4 in the grid layout (its plain path on the CPU): d/dgrid, (N, P,
+    Q, 2), with the factor 0.5 (size - 1) applied inside.  'zeros' against
+    the grid cotangent of ``dvd_tpu``'s ``warp_const_src`` (its Pallas
+    pair in interpret mode), 'border' against ``gather_bilinear_grad_planar``
+    chained through the same factor; 1e-5 of the largest (the factor is
+    63.5 here, so the f32 rounding is relative)."""
+    rng = np.random.RandomState(11)
+    n, c, h, w, p, q = 2, 2, 16, 128, 8, 128
+    img = rng.rand(n, h, w, c).astype(np.float32)               # NHWC
+    gx = _off_integers(rng.uniform(-2, w + 1, (n, p, q)))
+    gy = _off_integers(rng.uniform(-2, h + 1, (n, p, q)))
+    grid = np.stack([gx / (0.5 * (w - 1)) - 1, gy / (0.5 * (h - 1)) - 1],
+                    -1).astype(np.float32)
+    ct = rng.randn(n, p, q, c).astype(np.float32)
+    if padding_mode == "zeros":
+        _, vjp = jax.vjp(_warp_const_src_pallas_interpret, jnp.asarray(img),
+                         jnp.asarray(grid))
+        want = np.asarray(vjp(jnp.asarray(ct))[1])
+    else:
+        gxu = (grid[..., 0] + 1.0) * 0.5 * (w - 1)
+        gyu = (grid[..., 1] + 1.0) * 0.5 * (h - 1)
+        ggx, ggy = gather_bilinear_grad_planar(
+            jnp.asarray(img.transpose(0, 3, 1, 2)), jnp.asarray(gxu),
+            jnp.asarray(gyu), jnp.asarray(ct.transpose(0, 3, 1, 2)),
+            padding_mode="border", interpret=True)
+        want = np.stack([np.asarray(ggx) * (0.5 * (w - 1)),
+                         np.asarray(ggy) * (0.5 * (h - 1))], -1)
+    got = gather_bilinear_grad(nchw(img), t(grid), nchw(ct), padding_mode)
+    assert got.shape == (n, p, q, 2)
+    np.testing.assert_allclose(got.numpy(), want,
+                               atol=1e-5 * max(1.0, np.abs(want).max()))

@@ -26,6 +26,7 @@ from dvd_tpu.utils.grids import base_grid as j_base_grid
 from dvd_tpu.utils.grids import flow_to_grid as j_flow_to_grid
 from dvd_tpu_torch.diffusion import gaussian as G
 from dvd_tpu_torch.diffusion.schedule import make_schedule
+from dvd_tpu_torch.models.layers import conv1x1_f32
 from dvd_tpu_torch.ops.grid_sample import grid_sample, warp
 from dvd_tpu_torch.ops.kernels import build
 from dvd_tpu_torch.ops.kernels.attention import attention, attention_ref
@@ -33,8 +34,10 @@ from dvd_tpu_torch.ops.kernels.conv3x3 import (chunk_channels, conv3x3,
                                                conv3x3_ref, k_major_cols,
                                                k_major_weights)
 from dvd_tpu_torch.ops.kernels.gather2d import gather2d, gather2d_ref
-from dvd_tpu_torch.ops.kernels.grid_sample import (gather_bilinear,
-                                                   gather_bilinear_ref)
+from dvd_tpu_torch.ops.kernels.grid_sample import (
+    gather_bilinear, gather_bilinear_grad, gather_bilinear_grad_grid_ref,
+    gather_bilinear_grid, gather_bilinear_grid_ref, gather_bilinear_ref)
+from dvd_tpu_torch.ops.kernels.unwarp import unwarp, unwarp_ref
 from dvd_tpu_torch.ops.resize import resize_bilinear
 from dvd_tpu_torch.utils.grids import base_grid, flow_to_grid
 from test_torch_common import nchw, nhwc, t
@@ -142,6 +145,20 @@ KERNEL_CASES = {
                         lambda g: (torch.rand(1, 2, 6, 5, generator=g),
                                    torch.rand(1, 3, 4, generator=g) * 7 - 1,
                                    torch.rand(1, 3, 4, generator=g) * 8 - 1)),
+    "gather_bilinear_grid": (
+        gather_bilinear_grid, gather_bilinear_grid_ref,
+        lambda g: (torch.rand(1, 2, 6, 5, generator=g),
+                   torch.rand(1, 3, 4, 2, generator=g) * 2.4 - 1.2, "border")),
+    "gather_bilinear_grad": (
+        gather_bilinear_grad, gather_bilinear_grad_grid_ref,
+        lambda g: (torch.rand(1, 2, 6, 5, generator=g),
+                   torch.rand(1, 3, 4, 2, generator=g) * 2.4 - 1.2,
+                   torch.randn(1, 2, 3, 4, generator=g))),
+    "unwarp": (unwarp, unwarp_ref,
+               lambda g: ((torch.rand(2, 9, 9, 3, generator=g) * 255)
+                          .to(torch.uint8),
+                          (torch.rand(2, 4, 4, 2, generator=g) - 0.5) * 0.2,
+                          torch.tensor([[9, 7], [5, 9]], dtype=torch.int32))),
     "gather2d": (gather2d, gather2d_ref,
                  lambda g: (torch.rand(6, 5, generator=g),
                             torch.randint(-1, 7, (3, 4), generator=g,
@@ -163,6 +180,29 @@ def test_wrapper_takes_twin_for_cpu_tensors(name):
     meta = tuple(a.to("meta") if torch.is_tensor(a) else a for a in args)
     with pytest.raises(ValueError):
         wrapper(*meta)
+
+
+def test_conv1x1_f32_is_the_f32_convolution():
+    """``conv1x1_f32`` (U2NetP's ``outconv``, the line UNet's ``outc``) as
+    an f32 matmul over the channels, the reference's f32 einsum: within
+    f32 rounding of the float64 convolution, for f32 and bf16 inputs (the
+    result in the input's dtype).  On a card the matmul is what keeps it
+    off TF32 (``tests/test_torch_cuda.py``)."""
+    g = torch.Generator().manual_seed(1)
+    conv = torch.nn.Conv2d(64, 2, 1)
+    x = torch.randn(2, 64, 9, 13, generator=g)
+    want = torch.nn.functional.conv2d(x.double(), conv.weight.double(),
+                                      conv.bias.double())
+    got = conv1x1_f32(conv, x)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    torch.testing.assert_close(got.double(), want, rtol=0,
+                               atol=1e-6 * want.abs().max().item())
+    xb = x.bfloat16()
+    got = conv1x1_f32(conv, xb)
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got, torch.nn.functional.conv2d(
+        xb.double(), conv.weight.double(), conv.bias.double()).bfloat16(),
+        rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("cin,cout,dil", [(3, 16, 1), (4, 64, 2), (16, 16, 4),
