@@ -20,11 +20,13 @@ exits non-zero -- nothing is caught):
             wgmma one; K1 a ragged bf16 case and DiT-XL's head dim 72,
             zero-padded to 128; K2 bf16 at every shape class of the
             serving and training paths, batches 4 and 10; K3 through both
-            entries at its five main-path shapes; the fused unwarp at the
-            dataset path's uint8 2048^2 batch and the serving path's f32
-            512^2 one; K4 on the grid, both modes), with the stated
-            tolerances (K5
-            bit for bit, at the probe's case and at an unwarp-scale case);
+            entries at its six main-path shapes, the augmentation's warp
+            of image + mask at (10, 4, 512, 512) among them; the fused
+            unwarp at the dataset path's uint8 2048^2 batch and the
+            serving path's f32 512^2 one; K4 on the grid, both modes),
+            with the stated tolerances (K5 bit for bit, at the probe's
+            case and at an unwarp-scale case); ``augment_batch`` on the
+            card against the CPU (the same raw batch and jitter factors);
             the autograd Functions (attention, the trainable conv,
             warp_const_src) against the autograd of the plain versions;
             then each kernel's time beside its twin's, one PyTorch library
@@ -58,13 +60,19 @@ exits non-zero -- nothing is caught):
             zero-initialised layers drawn small), batch, t and noise,
             dropout off.
 6. train    the shipped training config (bf16 compute, f32 parameters,
-            batch 10, 512^2, time-variant loss with its rollout) through
-            ``training.train_loop.train`` on seeded synthetic float-wire
-            batches: samples/s over 15 warm steps timed end to end, ms
-            per step by stage over 4 more (each stage synchronised),
-            loss, parameters and EMA moved, launches per step, peak
-            memory, and one profiled step (device time by kernel, the
-            device's busy share).
+            batch 10, 512^2, time-variant loss with its rollout, the
+            on-device augmentation) through ``training.train_loop.train``,
+            its batches from ``cli.run_training.device_resident_iterator``
+            over 32 seeded stand-in raw samples (image, soft mask, flow;
+            the card's machine has no cv2 or h5py to read Doc3D files)
+            staged on the card: samples/s over 15 warm steps timed end to
+            end, ms per step by stage over 4 more (each stage
+            synchronised), loss, parameters and EMA moved, launches per
+            step (every K3 launch through its grid entry, one more a step
+            than train32's: the augmentation's warp), peak memory, and one
+            profiled step (device time by kernel, the device's busy
+            share).  Then 3 steps with ``device_dataset="off"``, the same
+            set through ``PrefetchLoader``'s host threads.
 7. probe    the K5 probe entry (``dvd_tpu_torch.tools.gather_probe``) on
             the card: exact, and K5 launched.
 8. dataset  the dataset serving path.  Weights: the aux nets of a seeded
@@ -86,8 +94,9 @@ exits non-zero -- nothing is caught):
 
 The line before the last is the per-kernel JSON record (every kernel and
 route, each with the launches of the run that drives it: K1-K4 from the
-training run, the fused unwarp from the serving run, the f32 routes from
-train32, K5 from the probe); the last line is ``{"ok": true, "device":
+training run, the augmentation's K3 launches included, the fused unwarp
+from the serving run, the f32 routes from train32, K5 from the probe);
+the last line is ``{"ok": true, "device":
 {...}}``.  Without a CUDA device the script raises before printing any
 result.
 """
@@ -132,6 +141,8 @@ TOL = {
     "train_loss_rel": 1e-4,    # f32 train step, card vs CPU, relative
     "train_grad": 1e-3,        # every gradient, x max(1, max|g|)
     "train_points": 1e-4,      # the loss warp's [-1, 1] points, card vs CPU
+    "augment": 1e-5,           # augment_batch card vs CPU, same batch and
+                               # factors (the warp's bar against dvd_tpu)
 }
 
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense): the
@@ -364,7 +375,8 @@ def phase_env(state):
         "unwarp_kernel S^2 x 8 bytes (32.0 KiB at the latent's S = 64); "
         "gather2d_kernel 0")
     # K3's plan (channels and points per thread) at each of its main-path
-    # shapes: the re-warps, the loss's warp, the unfused 2048^2 unwarp
+    # shapes: the re-warps, the loss's warp, the unfused 2048^2 unwarp, the
+    # augmentation's warp
     from dvd_tpu_torch.ops.kernels.grid_sample import gather_plan
     for n, c, hw in GATHER_CASES:
         p = gather_plan(n, c, hw * hw)
@@ -444,9 +456,36 @@ def _grads_vs(name, fn, ref, inputs, ct, bar_rel):
 
 # K3's shapes (N, C, plane side): the serving unwarp's and the dataset
 # unwarp's gathers as the unfused path ran them, the sampler's feature
-# re-warp, then the training loss's warp and the rollout's re-warps
+# re-warp, then the training loss's warp, the rollout's re-warps and the
+# augmentation's warp of image + mask (one launch over their 4 channels)
 GATHER_CASES = ((4, 3, 512), (8, 256, 64), (4, 3, 2048), (10, 2, 512),
-                (10, 256, 64))
+                (10, 256, 64), (10, 4, 512))
+
+
+def _augment_case():
+    """``augment_batch`` (K3's warp of image + mask, then the jitter) on the
+    card against the same call on the CPU: the same raw training batch of
+    the stand-in set and the same jitter factors, at the shipped
+    ``inter_t / inter_T = 0`` (the identity warp) and at 0.35."""
+    from dvd_tpu_torch.data.device_aug import augment_batch, jitter_factors
+
+    b = 10
+    ds = StandInRawPages(b, SEED + 21)
+    raw = {k: torch.from_numpy(np.stack([ds[i][k] for i in range(b)]))
+           for k in ds[0]}
+    factors = jitter_factors(b, torch.Generator().manual_seed(SEED + 22))
+    dev_raw = {k: v.cuda() for k, v in raw.items()}
+    dev_factors = tuple(f.cuda() for f in factors)
+    for frac in (0.0, 0.35):
+        want = augment_batch(raw, factors, inter_frac=frac)
+        got = augment_batch(dev_raw, dev_factors, inter_frac=frac)
+        for k in ("source_image", "doc_mask", "flow_map_inter"):
+            compare(f"augment_batch ({b}, 512, 512) frac {frac:g} {k}, card "
+                    f"vs CPU", got[k].cpu(), want[k], TOL["augment"])
+    ms = cuda_time_ms(lambda: augment_batch(dev_raw, dev_factors,
+                                            inter_frac=0.0))
+    log(f"  augment_batch ({b}, 512, 512), the warp and the jitter: {ms:.4f} "
+        f"ms a call (CUDA events, mean of 20)")
 
 
 def _unwarp_kernel_cases(gen, errs, times):
@@ -693,14 +732,22 @@ def phase_kernels(state):
                     compare(f"{case} planes", got_planes,
                             gather_bilinear_ref(img, gx, gy, mode),
                             TOL["gather_f32"]))
+                library = lambda: F.grid_sample(
+                    img, grid, mode="bilinear", padding_mode=mode,
+                    align_corners=True)
                 _record(times, "gather_bilinear", case,
                         lambda: gather_bilinear_grid(img, grid, mode),
                         lambda: gather_bilinear_grid_ref(img, grid, mode),
-                        lambda: F.grid_sample(img, grid, mode="bilinear",
-                                              padding_mode=mode,
-                                              align_corners=True),
-                        _nbytes(img, grid, got), n * hw * hw * (8 * c + 12),
-                        torch.float32)
+                        library, _nbytes(img, grid, got),
+                        n * hw * hw * (8 * c + 12), torch.float32)
+                # a few-channel launch takes about as long as the host's
+                # launch of it: replayed from a CUDA graph, without the
+                # host, beside grid_sample's the same way
+                times[("gather_bilinear", case)].update(
+                    graph_ms=cuda_graph_ms(
+                        lambda: gather_bilinear_grid(img, grid, mode)),
+                    library_graph_ms=cuda_graph_ms(library))
+        _augment_case()
         _unwarp_kernel_cases(gen, errs, times)
 
         log("[kernels] K4 gather_bilinear_grad (N, C, H, W): d/dgrid of "
@@ -821,6 +868,10 @@ def phase_kernels(state):
         if "yardstick_ms" in r:
             lib += (f"; yardstick, the unfused path: {r['yardstick_ms']:.4f} "
                     f"ms (kernel {r['ms'] / r['yardstick_ms']:.2f}x of it)")
+        if "graph_ms" in r:
+            lib += (f"; from a CUDA graph: kernel {r['graph_ms']:.4f} ms, "
+                    f"library {r['library_graph_ms']:.4f} ms (kernel "
+                    f"{r['graph_ms'] / r['library_graph_ms']:.2f}x of it)")
         log(f"  {name} {case}: kernel {r['ms']:.4f} ms, plain twin "
             f"{r['plain_ms']:.4f} ms ({r['plain_ms'] / r['ms']:.2f}x), "
             f"library {lib}, bound {r['bound_ms']:.4g} ms ({r['bound_by']}, "
@@ -1381,6 +1432,21 @@ def _kernel_shares(rows, busy, what) -> dict:
 
 
 # ---------------------------------------------------------------- phases 5-6
+def _wire_batch_flow(b: int, gen: torch.Generator, amp: float,
+                     hw: int = 512) -> torch.Tensor:
+    """Smooth random absolute flows (B, hw, hw, 2) of about ``amp`` pixels:
+    a sum of three low sinusoids per channel."""
+    yy, xx = torch.meshgrid(torch.linspace(0, 1, hw), torch.linspace(0, 1, hw),
+                            indexing="ij")
+    a = torch.randn((b, 2, 3), generator=gen) * amp
+    f = torch.rand((b, 2, 3, 3), generator=gen) * 3
+    out = sum(a[..., i, None, None] * torch.sin(
+        2 * math.pi * (f[..., i, 0, None, None] * xx
+                       + f[..., i, 1, None, None] * yy
+                       + f[..., i, 2, None, None])) for i in range(3))
+    return out.permute(0, 2, 3, 1).contiguous()
+
+
 def _wire_batch(b: int, gen: torch.Generator) -> dict:
     """A seeded synthetic float-wire batch (CPU tensors): document photos
     with their page mask, and smooth absolute flows (pixels) for the GT
@@ -1390,19 +1456,47 @@ def _wire_batch(b: int, gen: torch.Generator) -> dict:
     yy, xx = torch.meshgrid(torch.linspace(0, 1, hw), torch.linspace(0, 1, hw),
                             indexing="ij")
     page = ((xx > 0.08) & (xx < 0.92) & (yy > 0.06) & (yy < 0.94)).float()
-
-    def flow(amp):
-        a = torch.randn((b, 2, 3), generator=gen) * amp
-        f = torch.rand((b, 2, 3, 3), generator=gen) * 3
-        out = sum(a[..., i, None, None] * torch.sin(
-            2 * math.pi * (f[..., i, 0, None, None] * xx
-                           + f[..., i, 1, None, None] * yy
-                           + f[..., i, 2, None, None])) for i in range(3))
-        return out.permute(0, 2, 3, 1).contiguous()
-
     return {"source_image": src,
             "doc_mask": page[None, ..., None].expand(b, hw, hw, 1).contiguous(),
-            "flow_map": flow(12.0), "flow_map_inter": flow(6.0)}
+            "flow_map": _wire_batch_flow(b, gen, 12.0),
+            "flow_map_inter": _wire_batch_flow(b, gen, 6.0)}
+
+
+class StandInRawPages:
+    """``n`` seeded raw training items in the Doc3D datasets' ``device_aug``
+    form (the card's machine has no cv2 or h5py to read Doc3D files):
+    ``image512`` a document photo in [0, 255] with fractional levels,
+    ``doc_mask512`` the page with soft edges (a few pixels' ramp) in
+    [0, 1], ``flow_map`` a smooth backward-map offset field of some
+    pixels.  The items are drawn when the set is made, so a loader's
+    ``__getitem__(i, seed)`` costs only the lookup."""
+
+    def __init__(self, n: int, seed: int):
+        hw = 512
+        gen = torch.Generator().manual_seed(seed)
+        yy, xx = torch.meshgrid(torch.linspace(0, 1, hw),
+                                torch.linspace(0, 1, hw), indexing="ij")
+
+        def ramp(x):        # 0 -> 1 over about five pixels
+            return (x * hw / 5).clamp(0, 1)
+
+        self.samples = list(range(n))
+        self.items = []
+        for _ in range(n):
+            m = torch.rand((4,), generator=gen) * 0.04 + 0.05  # margins
+            mask = (ramp(xx - m[0]) * ramp(1 - m[1] - xx) * ramp(yy - m[2])
+                    * ramp(1 - m[3] - yy))
+            flow = _wire_batch_flow(1, gen, 12.0)[0]
+            self.items.append({
+                "image512": (_page(1, hw, hw, gen)[0] * 255).numpy(),
+                "doc_mask512": mask[..., None].numpy(),
+                "flow_map": flow.numpy()})
+
+    def __len__(self) -> int:
+        return len(self.samples)
+
+    def __getitem__(self, i: int, seed=None) -> dict:
+        return self.items[i]
 
 
 def _no_dropout(net) -> None:
@@ -1616,6 +1710,22 @@ class StageSpans:
         return span()
 
 
+def _row_logger():
+    """A KVLogger that writes nothing and keeps each dumped row in
+    ``rows``."""
+    from dvd_tpu_torch.utils.logger import KVLogger
+
+    class Rows(KVLogger):
+        def dumpkvs(self, step=None):
+            out = super().dumpkvs(step)
+            self.rows.append(out)
+            return out
+
+    logger = Rows(None, formats=())
+    logger.rows = []
+    return logger
+
+
 def _profile_rows(prof):
     """(name, device us, count) of the kernels a profile recorded, largest
     first.  Kernel (device-side) events only: an aten op's own device time
@@ -1632,41 +1742,53 @@ def _profile_rows(prof):
     return sorted(rows, key=lambda r: -r[1])
 
 
+# the stand-in raw training set: its 32 samples stage on the card (about
+# 3.9 MB each) and span three epochs of batch 10 in phase 6's 22 steps
+TRAIN_SET = 32
+
+
 def phase_train(state):
+    from dvd_tpu_torch.cli.run_training import (_device_dataset_ok,
+                                                device_resident_iterator)
     from dvd_tpu_torch.config import default_config
     from dvd_tpu_torch.evaluation.pipeline import DewarpPipeline
     from dvd_tpu_torch.training.train_loop import train
-    from dvd_tpu_torch.utils.logger import KVLogger
 
     spans = StageSpans(warm=2, measured=15, staged=4)
     steps = spans.profile_step + 1
+    ds = StandInRawPages(TRAIN_SET, SEED + 8)
     with tempfile.TemporaryDirectory() as ws:
-        # the shipped config, but for the float wire and no checkpoint
-        # before the final one (log_interval stays 20: steps 0 and 20 log)
+        # the shipped config (on_device_aug, the device-resident set), but
+        # no checkpoint before the final one (log_interval stays 20: steps
+        # 0 and 20 log)
         cfg = default_config().replace(
-            train={"on_device_aug": False, "save_interval": 10 ** 9},
-            paths={"workspace_dir": ws})
+            train={"save_interval": 10 ** 9}, paths={"workspace_dir": ws})
         m, b = cfg.model, cfg.train.batch_size
-        gen = torch.Generator().manual_seed(SEED + 8)
-        batches = [_wire_batch(b, gen) for _ in range(2)]
-        data = (batches[i % 2] for i in range(steps))
+        if not (cfg.train.on_device_aug and _device_dataset_ok(cfg, ds)):
+            raise AssertionError("the shipped config does not stage the "
+                                 "stand-in set on the card")
         init = DewarpPipeline.create(
             cfg, "cpu", generator=torch.Generator().manual_seed(cfg.train.seed),
             train=True).dit.state_dict()
-
-        class Losses(KVLogger):
-            def dumpkvs(self, step=None):
-                out = super().dumpkvs(step)
-                self.rows.append(out)
-                return out
-
-        logger = Losses(None, formats=())
-        logger.rows = []
+        logger = _row_logger()
         log(f"[train] {m.dit_variant} compute {m.compute_dtype}, params "
             f"{m.param_dtype}, batch {b}, {m.source_size}^2, time_variant="
             f"{m.time_variant} iter={m.iter}, {cfg.train.schedule_sampler} "
             f"sampler, AdamW lr {cfg.train.lr:g} clip {cfg.train.grad_clip:g} "
-            f"EMA {cfg.train.ema_rate}; {steps} steps ({state['label']})")
+            f"EMA {cfg.train.ema_rate}, on_device_aug="
+            f"{cfg.train.on_device_aug} (inter_t/inter_T "
+            f"{cfg.data.inter_t}/{cfg.data.inter_T}); {steps} steps from the "
+            f"device-resident set of {TRAIN_SET} stand-in raw samples "
+            f"({state['label']})")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        data = device_resident_iterator(cfg, ds, SEED + 8, "cuda")
+        first = next(data)       # staging happens at the first batch
+        torch.cuda.synchronize()
+        log(f"[train] staged and gathered the first batch in "
+            f"{time.perf_counter() - t0:.2f} s: "
+            + ", ".join(f"{k} {tuple(v.shape)} {str(v.dtype)[6:]}"
+                        for k, v in first.items()))
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
@@ -1695,6 +1817,14 @@ def phase_train(state):
     log(f"[train] kernel launches in the run: {counts}; per step {per_step}")
     if min(counts[k] for k in TRAIN_KERNELS) <= 0:
         raise AssertionError(f"a kernel of the path did not launch: {counts}")
+    # one step's loss and gradients (train32, float wire) plus the
+    # augmentation's one warp of image + mask
+    want_k3 = state["train32_launches"]["gather_bilinear"] + 1
+    log(f"[train] K3 launches per step {per_step['gather_bilinear']:g}: the "
+        f"step's {want_k3 - 1} (train32) + the augmentation's 1")
+    if counts["gather_bilinear"] != steps * want_k3:
+        raise AssertionError(f"K3 launched {counts['gather_bilinear']} times "
+                             f"in {steps} steps, expected {want_k3} a step")
     log(f"[train] K2 launches per step by shape class, (B, Cin, Cout, H, W, "
         f"dilation): {({k: n / steps for k, n in sorted(shapes.items())})}")
     if sum(shapes.values()) != counts["conv3x3"]:
@@ -1731,7 +1861,8 @@ def phase_train(state):
     log(f"[train] by stage, mean of {spans.staged} further steps with every "
         f"stage ended by a synchronise: {staged_s * 1e3:.1f} ms per step "
         f"in all ({state['label']})")
-    for name, ms in (("batch prep (H2D + frozen Seg/line-UNet)", per["prep"]),
+    for name, ms in (("batch prep (gather, augmentation, frozen "
+                      "Seg/line-UNet)", per["prep"]),
                      ("rollout (2 model calls, no grad)", per["rollout"]),
                      ("pyramid + supervised forward + backward", fwd_bwd),
                      ("optimizer + EMA", per["optimizer_ema"])):
@@ -1753,6 +1884,53 @@ def phase_train(state):
         if shares[entry] <= 0:
             raise AssertionError(f"the profiled bf16 train step shows no "
                                  f"{entry} time")
+    _train_host_loader(state, ds, want_k3)
+
+
+def _train_host_loader(state, ds, want_k3, steps: int = 3):
+    """A few steps of the shipped config with ``device_dataset="off"``: the
+    same stand-in set through ``PrefetchLoader``'s host threads, the raw
+    batches copied to the card each step and augmented there."""
+    from dvd_tpu_torch.cli.run_training import _device_dataset_ok
+    from dvd_tpu_torch.config import default_config
+    from dvd_tpu_torch.data.loader import PrefetchLoader
+    from dvd_tpu_torch.training.train_loop import train
+
+    with tempfile.TemporaryDirectory() as ws:
+        cfg = default_config().replace(
+            train={"device_dataset": "off", "log_interval": 1},
+            paths={"workspace_dir": ws})
+        if _device_dataset_ok(cfg, ds):
+            raise AssertionError("device_dataset=off staged the set")
+        loader = iter(PrefetchLoader(
+            ds, batch_size=cfg.train.batch_size,
+            num_workers=cfg.data.n_threads, seed=SEED + 8,
+            keys=("image512", "doc_mask512", "flow_map")))
+        logger = _row_logger()
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        try:
+            train(cfg, loader, max_steps=steps, device="cuda", logger=logger)
+        finally:
+            loader.close()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_launches()
+        check_gather_route("train, host loader")
+        files = sorted(os.listdir(os.path.join(ws, cfg.name)))
+    losses = [r["loss"] for r in logger.rows]
+    log(f"[train] host loader (device_dataset=off, PrefetchLoader, "
+        f"{cfg.data.n_threads} threads): {steps} steps in {wall:.2f} s, "
+        f"pipeline set-up included; loss {losses}; launches {counts}; "
+        f"wrote {files}")
+    if len(losses) != steps or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"host-loader run losses {losses}")
+    if counts["gather_bilinear"] != steps * want_k3 or \
+            min(counts[k] for k in TRAIN_KERNELS) <= 0:
+        raise AssertionError(f"host-loader run launches {counts}")
+    if f"state_{steps:08d}.pt" not in files:
+        raise AssertionError(f"host-loader run wrote {files}")
 
 
 # ---------------------------------------------------------------- phase 7

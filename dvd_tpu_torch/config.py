@@ -136,10 +136,9 @@ class TrainConfig:
     fp16_scale_growth: float = 1e-3
     seed: int = 0
     # run the 512^2 intermediate warp + color jitter on the device in the
-    # batch prep instead of in host loader workers (the reference's
-    # cv2/kornia worker augmentation, listdataset.py:573-703).  The port's
-    # training takes only pre-augmented float-wire batches so far: set
-    # False for it (a batch with the augmentation keys raises).
+    # batch prep (data/device_aug.py) instead of in host loader workers
+    # (the reference's cv2/kornia worker augmentation,
+    # listdataset.py:573-703)
     on_device_aug: bool = True
     # with on_device_aug, keep a small dataset on the device and gather
     # batches there.  "auto": when single-process and it fits the GB cap;
@@ -147,7 +146,7 @@ class TrainConfig:
     device_dataset: str = "auto"              # "auto" | "on" | "off"
     device_dataset_max_gb: float = 4.0
     # uint8/latent-res host->device wire for train batches (a JAX package
-    # option); False is the bit-exact float wire
+    # option; the port always feeds the float wire)
     slim_wire: bool = True
 
     @property

@@ -26,10 +26,13 @@ IMAGE_EXTS = (".png", ".jpg", ".jpeg", ".bmp", ".tiff", ".tif")
 
 
 def _cv2():
+    """OpenCV, imported when a function first reads, resizes, draws or
+    writes an image; a clear error on a machine without it."""
     try:
         import cv2
     except ImportError:
-        raise RuntimeError("cv2 required") from None
+        raise RuntimeError("cv2 required: OpenCV reads, resizes, draws and "
+                           "writes the images") from None
     cv2.setNumThreads(0)
     return cv2
 

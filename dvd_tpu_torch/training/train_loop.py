@@ -10,10 +10,16 @@ reference ``TrainLoop.run_loop_dewarping``, ``train_util.py:211-344``).
   every ``save_interval`` (``:333-339``);
 - one device.
 
-Batches are the float wire: ``source_image`` (B, 512, 512, 3) in [0, 1],
-``doc_mask`` (B, 512, 512, 1), ``flow_map`` and ``flow_map_inter``
-(B, 512, 512, 2) absolute offsets, channel-last numpy arrays or tensors.
-The on-device augmentation's batches (``image512``) are not taken yet.
+Batches are channel-last numpy arrays or tensors of one of two kinds,
+told apart by their keys, as in ``dvd_tpu``:
+
+- the on-device augmentation's raw batch (``train.on_device_aug``, the
+  shipped default): ``image512`` (B, 512, 512, 3) in [0, 255],
+  ``doc_mask512`` (B, 512, 512, 1), ``flow_map`` (B, 512, 512, 2)
+  absolute offsets; ``data/device_aug.augment_batch`` warps and jitters
+  it on the device, with jitter factors drawn from (``train.seed``, step);
+- the float wire, augmented on the host: ``source_image`` in [0, 1],
+  ``doc_mask``, ``flow_map`` and ``flow_map_inter``.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ from typing import Callable, Dict, Iterator, Optional
 import torch
 
 from dvd_tpu_torch.config import DvDConfig
+from dvd_tpu_torch.data.device_aug import augment_batch, jitter_factors
 from dvd_tpu_torch.evaluation.pipeline import DewarpPipeline
 from dvd_tpu_torch.models.u2net import seg_pyramid_to_latent
 from dvd_tpu_torch.ops.resize import resize_bilinear
@@ -48,12 +55,6 @@ def build_device_batch(pipe: DewarpPipeline, raw: Dict[str, torch.Tensor],
     Streams follow the reference's flags (``train_util.py:275-304``): with
     ``use_gt_mask`` neither the seg pyramid nor the line stream is made;
     the line stream also needs ``use_line_mask``."""
-    if "image512" in raw:
-        raise NotImplementedError(
-            "batches for the on-device augmentation (image512, ...; "
-            "dvd_tpu/data/device_aug.py) are not ported yet: feed the float "
-            "wire (source_image, doc_mask, flow_map, flow_map_inter) and "
-            "set train.on_device_aug=False")
     m = pipe.cfg.model
     src = raw["source_image"]
     if src.dtype == torch.uint8:
@@ -96,35 +97,76 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
         (seed * 1_000_003 + step) % (2 ** 63))
 
 
+def make_batch_prep(cfg: DvDConfig, pipe: DewarpPipeline
+                    ) -> Callable[[Dict, int], Dict[str, torch.Tensor]]:
+    """``prep(raw, step)``: a host or device batch of either kind (see the
+    module docstring) -> the train step's batch on ``pipe.device``.
+
+    A raw batch goes through ``augment_batch`` at ``data.inter_t /
+    data.inter_T`` with jitter factors drawn from a generator seeded by
+    (``train.seed ^ 0x5EED``, step), so a resumed run draws what the
+    uninterrupted run would have.  A batch whose kind disagrees with
+    ``train.on_device_aug`` is used as it is, with one warning."""
+    device, latent = pipe.device, cfg.model.image_size
+    frac = cfg.data.inter_t / cfg.data.inter_T
+    warned = []
+
+    def warn_once(msg):
+        if not warned:
+            warnings.warn(msg, stacklevel=3)
+            warned.append(True)
+
+    @torch.no_grad()
+    def prep(raw: Dict, step: int) -> Dict[str, torch.Tensor]:
+        raw = {k: torch.as_tensor(v).to(device, non_blocking=True)
+               for k, v in raw.items()}
+        if "image512" in raw:
+            if not cfg.train.on_device_aug:
+                warn_once("train.on_device_aug=False but the batch carries "
+                          "the raw augmentation keys (image512, ...); "
+                          "augmenting it on the device as given")
+            gen = step_generator(cfg.train.seed ^ 0x5EED, step, device)
+            raw = augment_batch(raw, jitter_factors(raw["image512"].shape[0],
+                                                    gen),
+                                inter_frac=frac)
+        elif cfg.train.on_device_aug:
+            warn_once("train.on_device_aug=True but the batch carries the "
+                      "pre-augmented float-wire keys; using it as given")
+        return build_device_batch(pipe, raw, latent)
+
+    return prep
+
+
 def train(cfg: DvDConfig, data_iter: Iterator[Dict],
           max_steps: Optional[int] = None, device="cuda",
           logger: Optional[KVLogger] = None,
           spans: Optional[Callable] = None) -> TrainState:
-    """Train the DiT on ``data_iter``'s float-wire batches until it ends or
+    """Train the DiT on ``data_iter``'s batches until it ends or
     ``max_steps`` steps are done; returns the final state (also saved to
-    ``workspace_dir/name``).  Weights are drawn from ``train.seed`` unless
-    a checkpoint in the workspace (or ``train.resume_checkpoint``) is
-    resumed.  ``spans`` times the step's stages (see ``make_train_step``)
-    and the batch preparation ("prep")."""
+    ``workspace_dir/name``).  Weights are drawn from ``train.seed``, then
+    the converted weight files found at ``cfg.paths`` are loaded over them
+    (the DiT's too, before the train state is built from it), as in
+    ``dvd_tpu``; a checkpoint in the workspace (or
+    ``train.resume_checkpoint``) wins over the loaded DiT.  ``spans``
+    times the step's stages (see ``make_train_step``) and the batch
+    preparation ("prep", the augmentation included)."""
     device = torch.device(device)
     ws = os.path.join(cfg.paths.workspace_dir, cfg.name)
     if logger is None:
         logger = KVLogger(os.path.join(cfg.paths.workspace_dir,
                                        f"train_{cfg.name}"))
-    latent = cfg.model.image_size
     pipe = DewarpPipeline.create(
         cfg, device, generator=torch.Generator().manual_seed(cfg.train.seed),
         train=True)
+    loaded = ckpt.maybe_load_pipeline_weights(pipe, cfg)
+    logger.log(f"converted weights loaded: {loaded}")
     state = create_train_state(cfg, pipe.dit)
     resume = cfg.train.resume_checkpoint or ckpt.latest_checkpoint(ws)
     if resume and os.path.isfile(str(resume)):
         state = ckpt.restore_train_state(resume, state)
         logger.log(f"resumed from {resume} at step {state.step}")
     train_step = make_train_step(cfg, pipe.sched, spans)
-    if cfg.train.on_device_aug:
-        warnings.warn("train.on_device_aug=True, but the port takes the "
-                      "pre-augmented float wire only; batches are used as "
-                      "given", stacklevel=2)
+    prep = make_batch_prep(cfg, pipe)
 
     step = state.step
     t_last = time.perf_counter()
@@ -132,9 +174,7 @@ def train(cfg: DvDConfig, data_iter: Iterator[Dict],
         if max_steps is not None and step >= max_steps:
             break
         with spans("prep") if spans else contextlib.nullcontext():
-            raw = {k: torch.as_tensor(raw[k]).to(device, non_blocking=True)
-                   for k in raw}
-            batch = build_device_batch(pipe, raw, latent)
+            batch = prep(raw, step)
         gen = step_generator(cfg.train.seed, step, device)
         state, metrics = train_step(state, batch, gen)
 

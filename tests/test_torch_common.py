@@ -187,3 +187,41 @@ def train_batch(b: int = 2, seed: int = 1):
     }
     pb = {k: nchw(v) if k in COND_KEYS else t(v) for k, v in jb.items()}
     return {k: jax.numpy.asarray(v) for k, v in jb.items()}, pb
+
+
+def train_pipelines(sources, **train_over):
+    """(JAX config, port config, JAX pipeline, port pipeline) at the tiny
+    training configuration with ``train_over`` set, the same random aux
+    weights on both sides and DiT-mini's (``mini_dit_variables``) in the
+    port's; U2NetP's ``outconv`` bias shifted so the soft mask of every
+    source image in ``sources`` ((B, SRC, SRC, 3) arrays in [0, 1]) stays
+    clear of the hard threshold (``mask_margin_shift``)."""
+    import jax.numpy as jnp
+
+    from dvd_tpu.config import default_config as j_default_config
+    from dvd_tpu.evaluation.pipeline import DewarpPipeline as JPipeline
+    from dvd_tpu.models.dit import DiT as JDiT
+    from dvd_tpu.models.u2net import U2NetP as JU2NetP
+    from dvd_tpu.ops.resize import resize_bilinear as j_resize
+    from dvd_tpu_torch.config import default_config
+    from dvd_tpu_torch.evaluation.pipeline import DewarpPipeline
+
+    over = dict(model=TINY_MODEL, train=train_over)
+    jcfg = j_default_config().replace(**over)
+    cfg = default_config().replace(**over)
+    jp = JPipeline.create(jcfg)
+    jp.dit = JDiT(tv=True, chain_blocks=False, **MINI_DIT)   # unused here
+    jp.init_params(jax.random.PRNGKey(0))
+    seg_vars, line_vars = np_tree(jp.seg_vars), np_tree(jp.line_vars)
+    msk = {"params": seg_vars["params"]["msk"],
+           "batch_stats": seg_vars["batch_stats"]["msk"]}
+    d0 = np.concatenate([np.asarray(JU2NetP(1).apply(msk, j_resize(
+        jnp.asarray(src), (64, 64), align_corners=True))[0])
+        for src in sources])
+    seg_vars["params"]["msk"]["outconv"]["bias"] += mask_margin_shift(d0)
+    jp.seg_vars, jp.line_vars = seg_vars, line_vars
+    pipe = DewarpPipeline.create(cfg, "cpu", dit=mini_dit_port(
+        mini_dit_variables()[1]), train=True)
+    port(pipe.seg, seg_vars)
+    port(pipe.line, line_vars)
+    return jcfg, cfg, jp, pipe

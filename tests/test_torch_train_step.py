@@ -10,6 +10,7 @@ the JAX keys the JAX step splits (``train_state.py:210``,
 """
 
 import os
+import warnings
 
 import jax
 import jax.numpy as jnp
@@ -200,8 +201,114 @@ def test_resume_equals_uninterrupted_run(three_steps, tmp_path):
         .endswith("state_00000003.pt")
 
 
-def test_augmentation_batches_raise(tmp_path):
-    """A batch for the on-device augmentation is refused, naming it."""
-    batch = {"image512": np.zeros((1, SRC, SRC, 3), np.float32)}
-    with pytest.raises(NotImplementedError, match="device_aug.py"):
-        train(_train_cfg(tmp_path), iter([batch]), max_steps=1, device="cpu")
+def _raw_batches(seed=0, b=2):
+    """Raw batches for the on-device augmentation: a page in [0, 255], a
+    soft mask, a smooth backward-map offset field."""
+    rng = np.random.RandomState(seed)
+    while True:
+        yield {"image512": (rng.rand(b, SRC, SRC, 3) * 255).astype(np.float32),
+               "doc_mask512": np.clip(rng.rand(b, SRC, SRC, 1) * 1.5, 0, 1)
+               .astype(np.float32),
+               "flow_map": smooth_field(rng, b, SRC, 3.0)}
+
+
+def _aug_cfg(ws, **train_over):
+    cfg = _train_cfg(ws)
+    return cfg.replace(train=dict(on_device_aug=True, **train_over),
+                       data=dict(inter_t=7))
+
+
+def _assert_same_state(got, want):
+    for (k, a), b in zip(got.model.state_dict().items(),
+                         want.model.state_dict().values()):
+        assert torch.equal(a, b), k
+    for a, b in zip(got.ema_params[0].values(), want.ema_params[0].values()):
+        assert torch.equal(a, b)
+    sa, sb = got.optimizer.state_dict(), want.optimizer.state_dict()
+    assert sa["count"] == sb["count"]
+    for pa, pb in zip(sa["adamw"]["state"].values(),
+                      sb["adamw"]["state"].values()):
+        assert all(torch.equal(pa[k], pb[k]) for k in pa)
+
+
+def test_resume_equals_uninterrupted_run_device_aug(tmp_path):
+    """The shipped batch kind (raw, augmented on the device, jitter
+    factors from (seed, step)): one step, a restart that resumes from the
+    checkpoint, one more step: bit for bit the two-step run.  A run from
+    other data differs, so the step did use the batches."""
+    want = train(_aug_cfg(tmp_path / "a"), _raw_batches(), max_steps=2,
+                 device="cpu")
+    cfg = _aug_cfg(tmp_path / "b")
+    train(cfg, _raw_batches(), max_steps=1, device="cpu")
+    data = _raw_batches()
+    next(data)                   # the batch the first step took
+    got = train(cfg, data, max_steps=2, device="cpu")
+    assert got.step == want.step == 2
+    _assert_same_state(got, want)
+    other = train(_aug_cfg(tmp_path / "c"), _raw_batches(seed=1),
+                  max_steps=2, device="cpu")
+    assert not all(torch.equal(a, b) for a, b in zip(
+        other.model.parameters(), want.model.parameters()))
+
+
+@pytest.mark.parametrize("on_device_aug", [False, True])
+def test_batch_kind_mismatch_warns_once(tmp_path, on_device_aug):
+    """A raw batch under ``on_device_aug=False`` is augmented as given, and a
+    float-wire batch under ``on_device_aug=True`` used as given: each with
+    one warning over two steps, none when the kind agrees."""
+    cfg = _aug_cfg(tmp_path, log_interval=1000)
+    cfg = cfg.replace(train=dict(on_device_aug=on_device_aug))
+    data = _wire() if on_device_aug else _raw_batches()
+    with pytest.warns(UserWarning) as record:
+        train(cfg, data, max_steps=2, device="cpu")
+    msgs = [str(w.message) for w in record if "on_device_aug" in
+            str(w.message)]
+    assert len(msgs) == 1, msgs
+    assert ("raw augmentation keys" in msgs[0]) != on_device_aug
+    with warnings.catch_warnings():
+        warnings.filterwarnings("error", message=".*on_device_aug")
+        train(cfg.replace(paths=dict(workspace_dir=str(tmp_path / "ok"))),
+              _raw_batches() if on_device_aug else _wire(), max_steps=1,
+              device="cpu")
+
+
+def test_train_loads_converted_weights(tmp_path, monkeypatch):
+    """``train()`` loads the converted weight files at ``cfg.paths`` (flax
+    msgpack, written with ``utils/msgpack_io``) before it builds the train
+    state, as ``dvd_tpu``: step 0's parameters and EMA are the file's DiT,
+    and the frozen nets hold the files' weights, not the seeded ones."""
+    from dvd_tpu_torch.evaluation.pipeline import DewarpPipeline
+    from dvd_tpu_torch.training import train_loop
+    from dvd_tpu_torch.training.convert import state_dict_to_variables
+
+    cfg = _train_cfg(tmp_path)
+    src = DewarpPipeline.create(cfg, "cpu", train=True,
+                                generator=torch.Generator().manual_seed(77))
+    paths = {}
+    for attr, _, field in ckpt.PIPELINE_WEIGHTS:
+        paths[field] = str(tmp_path / f"{attr}.msgpack")
+        ckpt.save_variables(paths[field], state_dict_to_variables(
+            getattr(src, attr).state_dict()))
+    cfg = cfg.replace(paths=paths)
+    made = []
+    create = DewarpPipeline.create
+
+    def recording_create(*args, **kwargs):
+        made.append(create(*args, **kwargs))
+        return made[-1]
+
+    monkeypatch.setattr(train_loop.DewarpPipeline, "create", recording_create)
+    state = train(cfg, _wire(), max_steps=0, device="cpu")
+    assert state.step == 0 and len(made) == 1
+    for k, v in src.dit.state_dict().items():
+        assert torch.equal(state.model.state_dict()[k], v), k
+        if k in state.ema_params[0]:
+            assert torch.equal(state.ema_params[0][k], v), k
+    seeded = create(cfg, "cpu", train=True,
+                    generator=torch.Generator().manual_seed(cfg.train.seed))
+    for attr in ("seg", "line", "geotr"):
+        got = getattr(made[0], attr).state_dict()
+        for k, v in getattr(src, attr).state_dict().items():
+            assert torch.equal(got[k], v), (attr, k)
+        assert not all(torch.equal(got[k], v) for k, v in
+                       getattr(seeded, attr).state_dict().items()), attr

@@ -17,27 +17,19 @@ import numpy as np
 import torch
 
 import test_torch_common  # noqa: F401  (sets torch to 1 thread)
-from dvd_tpu.config import default_config as j_default_config
 from dvd_tpu.diffusion.schedule import make_schedule as j_make_schedule
-from dvd_tpu.evaluation.pipeline import DewarpPipeline as JPipeline
-from dvd_tpu.models.dit import DiT as JDiT
-from dvd_tpu.models.u2net import U2NetP as JU2NetP
-from dvd_tpu.ops.resize import resize_bilinear as j_resize
 from dvd_tpu.training import resample as jresample
 from dvd_tpu.training import train_state as jts
 from dvd_tpu.training.train_loop import build_device_batch as j_build_batch
 from dvd_tpu.training.train_loop import train_aux_vars
-from dvd_tpu_torch.config import default_config
 from dvd_tpu_torch.diffusion.schedule import make_schedule
-from dvd_tpu_torch.evaluation.pipeline import DewarpPipeline
 from dvd_tpu_torch.training.train_loop import build_device_batch
 from dvd_tpu_torch.training.train_state import (create_train_state,
                                                 make_train_step)
-from test_torch_common import (COND_KEYS, MINI_DIT, S, SRC, TINY_MODEL,
-                               assert_trees_close, mask_margin_shift,
+from test_torch_common import (COND_KEYS, S, SRC, assert_trees_close,
                                mini_dit_port, mini_dit_variables, nchw,
-                               no_flax_dropout, np_tree, port, smooth_field,
-                               torch_named)
+                               no_flax_dropout, smooth_field, torch_named,
+                               train_pipelines)
 
 STEPS = 5
 B = 2
@@ -51,30 +43,6 @@ def _wire(seed=0, b=B):
                "doc_mask": np.ones((b, SRC, SRC, 1), np.float32),
                "flow_map": smooth_field(rng, b, SRC, 3.0),
                "flow_map_inter": smooth_field(rng, b, SRC, 2.0)}
-
-
-def _pipelines(raws):
-    """(JAX pipeline, port pipeline) with the same random aux weights, the
-    soft mask shifted clear of the threshold for every batch."""
-    over = dict(model=TINY_MODEL, train=dict(on_device_aug=False, lr=LR))
-    jcfg = j_default_config().replace(**over)
-    cfg = default_config().replace(**over)
-    jp = JPipeline.create(jcfg)
-    jp.dit = JDiT(tv=True, chain_blocks=False, **MINI_DIT)   # unused here
-    jp.init_params(jax.random.PRNGKey(0))
-    seg_vars, line_vars = np_tree(jp.seg_vars), np_tree(jp.line_vars)
-    msk = {"params": seg_vars["params"]["msk"],
-           "batch_stats": seg_vars["batch_stats"]["msk"]}
-    d0 = np.concatenate([np.asarray(JU2NetP(1).apply(msk, j_resize(
-        jnp.asarray(r["source_image"]), (64, 64), align_corners=True))[0])
-        for r in raws])
-    seg_vars["params"]["msk"]["outconv"]["bias"] += mask_margin_shift(d0)
-    jp.seg_vars, jp.line_vars = seg_vars, line_vars
-    pipe = DewarpPipeline.create(cfg, "cpu", dit=mini_dit_port(
-        mini_dit_variables()[1]), train=True)
-    port(pipe.seg, seg_vars)
-    port(pipe.line, line_vars)
-    return jcfg, cfg, jp, pipe
 
 
 def test_five_train_steps_match_dvd_tpu(monkeypatch):
@@ -107,7 +75,8 @@ def test_five_train_steps_match_dvd_tpu(monkeypatch):
     no_flax_dropout(monkeypatch)
     data = _wire()
     raws = [next(data) for _ in range(STEPS)]
-    jcfg, cfg, jp, pipe = _pipelines(raws)
+    jcfg, cfg, jp, pipe = train_pipelines(
+        [r["source_image"] for r in raws], on_device_aug=False, lr=LR)
     jprep = jax.jit(lambda aux, raw: j_build_batch(jp, aux, raw, S))
     batches = []
     for raw in raws:
