@@ -32,11 +32,27 @@ exits non-zero -- nothing is caught):
             then each kernel's time beside its twin's, one PyTorch library
             call's (the fused unwarp, which no one call computes: the
             unfused path's) and its bound.
+2b. int8   ``ops/quant.py:int8_dense`` on the card against the CPU at the
+            serving path's int8 shapes (M 8192; the DiT block's K x N 384 x
+            1152, 384 x 1536, 1536 x 384 and the decoder's 1536 x 1536,
+            1536 x 2048, 2048 x 1536), bf16 and f32 activations: codes,
+            scales and the int32 product equal bit for bit, the output
+            bit for bit or within one rounding of its dtype; then
+            ``torch._int_mm``, a bf16 ``torch.matmul`` of the same shape,
+            the quantize pass, the rescale and the whole ``int8_dense``
+            timed beside their bounds (int8 1979 TOP/s, 3.35 TB/s).
 3. slice32  the serving slice at full DiT-S/2 width and 512^2, batch 1, in
             f32: once on the card through the kernels (launch counts must
             all be > 0) and once on the CPU through the twins, with the
             same weights and the same pinned x_T; flow and unwarped image
             compared.
+3b. slice_int8  slice32 with ``quantize="int8"``: card against CPU, the
+            int8 products counted (the code's count: each int8 layer of
+            the live block once per stream and each of the decoder's once,
+            per DDIM step); the CPU replays the card's int8 codes, and the
+            codes that differ (by one step, where f32 rounding crossed a
+            tie) are counted and must be rare; flow and image within
+            slice32's bars.
 4. shipped  the shipped config (bf16, batch 4, 3 DDIM steps x 2
             hypotheses) through ``DewarpPipeline.dewarp_flow`` +
             ``unwarp_fixed`` and through the single-image CLI function on a
@@ -53,6 +69,12 @@ exits non-zero -- nothing is caught):
             ms per stage; one
             run under torch.profiler for device time by kernel and the
             device's busy share.
+4b. shipped_int8  the shipped config with ``quantize="int8"`` on phase 4's
+            pages, weights and x_T: launches and routes as phase 4's, the
+            int8 products counted, the int8 layers' weights f32, the flow's
+            distance from phase 4's (a reading), imgs/s and ms by stage,
+            peak memory, one profiled run (int8 GEMM, elementwise and
+            reduction device time against phase 4's profile).
 5. train32  one f32 train step of the shipped training config at full
             DiT-S/2 width, batch 2, 512^2: its loss and every gradient on
             the card through the kernels (K1-K4 launch counts must all be
@@ -91,11 +113,22 @@ exits non-zero -- nothing is caught):
             dataset builds its pages from seeded arrays (the card's
             machine has no PIL or cv2), so decode and resize are outside
             the measured window.
+9. corrupt  ``cli.run_sampling.run_corruption_sweep`` (int8 serving) over 6
+            stand-in pages, every corruption that needs no cv2 at
+            severities 1 and 5: a ``run_stats.json`` and a coordinate map
+            per page for each combination, the kernels and the int8 GEMM
+            launched, and every page the driver read equal to
+            ``corrupt`` of it on the host.
+10. score   the port's SIFT-flow engine built with g++ (its build time);
+            phase 4's and phase 4b's unwarped pages scored against their
+            sources at equal size with MS-SSIM and the native LD/AD
+            (readings: the weights are random).
 
 The line before the last is the per-kernel JSON record (every kernel and
 route, each with the launches of the run that drives it: K1-K4 from the
 training run, the augmentation's K3 launches included, the fused unwarp
-from the serving run, the f32 routes from train32, K5 from the probe);
+from the serving run, the f32 routes from train32, K5 from the probe; and
+the int8 GEMM, a library route, from the int8 serving run);
 the last line is ``{"ok": true, "device":
 {...}}``.  Without a CUDA device the script raises before printing any
 result.
@@ -104,6 +137,7 @@ result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -935,12 +969,15 @@ ROUTED = ("attention", "conv3x3")
 
 
 def reset_launches() -> None:
+    from dvd_tpu_torch.ops import quant
+
     fns = _kernel_fns()
     for fn in fns.values():
         for f in fn if isinstance(fn, tuple) else (fn,):
             f.launches = 0
     for name in ROUTED:
         fns[name].launches_wgmma = fns[name].launches_f32 = 0
+    quant.launches = 0          # the int8 GEMM (a library call)
 
 
 def read_launches() -> dict:
@@ -1033,18 +1070,21 @@ def _soft_mask(pipe, source512: torch.Tensor) -> torch.Tensor:
         return pipe.seg.msk(x)[0].float().cpu()
 
 
-def phase_slice32(state):
-    from dvd_tpu_torch.config import default_config
+def _slice_card_vs_cpu(cfg, tag: str, codes=None):
+    """The serving slice of ``cfg`` at batch 1 and 512^2 from one weight
+    set (drawn on the CPU from one seed) and one pinned x_T: on the card
+    through the kernels (counted, K2 and K3 routes checked) and on the CPU
+    through the twins; flow and unwarped image compared.  ``codes(dev)``,
+    when given, is a context manager around each run.  The card run's
+    int8 products must equal the code's count (0 without int8)."""
     from dvd_tpu_torch.evaluation.pipeline import DewarpPipeline, unwarp_fixed
+    from dvd_tpu_torch.ops import quant
 
-    cfg = default_config().replace(model={"compute_dtype": "float32"},
-                                   diffusion={"n_batch": 2})
     m = cfg.model
     gen = torch.Generator().manual_seed(SEED + 1)
     src = _page(1, m.source_size, m.source_size, gen)
     noise = torch.randn((cfg.diffusion.n_batch, m.image_size, m.image_size, 2),
                         generator=gen)
-    # one weight set (drawn on the CPU from one seed), on both devices
     pipes = {dev: DewarpPipeline.create(
         cfg, dev, generator=torch.Generator().manual_seed(SEED + 2))
         for dev in ("cpu", "cuda")}
@@ -1066,31 +1106,68 @@ def phase_slice32(state):
             torch.cuda.synchronize()
             reset_launches()
         t0 = time.perf_counter()
-        flow = pipe.dewarp_flow(src.to(dev), init_noise=noise.to(dev))
-        image = unwarp_fixed(src.to(dev), flow)
+        with codes(dev) if codes else contextlib.nullcontext():
+            flow = pipe.dewarp_flow(src.to(dev), init_noise=noise.to(dev))
+            image = unwarp_fixed(src.to(dev), flow)
         if dev == "cuda":
             torch.cuda.synchronize()
-            counts = read_launches()
-            check_conv_route("slice32", torch.float32)
-            check_gather_route("slice32")
+            counts = dict(read_launches(), int8=quant.launches,
+                          int8_expected=_int8_expected(pipe))
+            check_conv_route(tag, torch.float32)
+            check_gather_route(tag)
         runs[dev] = (flow.cpu(), image.cpu())
-        log(f"[slice32] {dev}: {m.dit_variant} {m.compute_dtype} batch 1, "
-            f"{m.source_size}^2, {cfg.diffusion.diffusion_steps} steps x "
-            f"{cfg.diffusion.n_batch} "
+        log(f"[{tag}] {dev}: {m.dit_variant} {m.compute_dtype} "
+            f"quantize={m.quantize} batch 1, {m.source_size}^2, "
+            f"{cfg.diffusion.diffusion_steps} steps x {cfg.diffusion.n_batch} "
             f"hypotheses in {time.perf_counter() - t0:.2f} s (outconv bias "
             f"shift {shift:+.3f}, soft-mask margin {margin:.3f})")
     del pipes
-    log(f"[slice32] kernel launches in the card run: {counts}")
-    if min(counts[k] for k in SERVE_LAUNCHES if SERVE_LAUNCHES[k]) <= 0:
-        raise AssertionError(f"a kernel of the path did not launch: {counts}")
+    log(f"[{tag}] kernel launches in the card run: {counts}")
+    if min(counts[k] for k in SERVE_LAUNCHES if SERVE_LAUNCHES[k]) <= 0 \
+            or counts["int8"] != counts["int8_expected"]:
+        raise AssertionError(f"a kernel of the path did not launch, or "
+                             f"int8 launches off the code's count: {counts}")
     (fc, ic), (fp, ip) = runs["cuda"], runs["cpu"]
     if not (torch.isfinite(fc).all() and fc.abs().max() <= 1):
         raise AssertionError("card flow not finite or outside [-1, 1]")
-    log(f"[slice32] flow |max| {fc.abs().max().item():.4f}, mean |flow| "
+    log(f"[{tag}] flow |max| {fc.abs().max().item():.4f}, mean |flow| "
         f"{fc.abs().mean().item():.4f}, clamped at +-1: "
         f"{(fc.abs() >= 1).float().mean().item():.2%}")
-    compare("flow card vs CPU", fc, fp, TOL["slice_flow"])
-    compare("unwarped image card vs CPU", ic, ip, TOL["slice_image"])
+    compare(f"{tag} flow card vs CPU", fc, fp, TOL["slice_flow"])
+    compare(f"{tag} unwarped image card vs CPU", ic, ip, TOL["slice_image"])
+
+
+def phase_slice32(state):
+    from dvd_tpu_torch.config import default_config
+
+    _slice_card_vs_cpu(default_config().replace(
+        model={"compute_dtype": "float32"}, diffusion={"n_batch": 2}),
+        "slice32")
+
+
+def _warm_stages(pipe, src, gen, iters: int) -> dict:
+    """Seconds per batch of each serving stage, the mean of ``iters`` warm
+    runs (host clock around synchronised work)."""
+    from dvd_tpu_torch.evaluation.pipeline import unwarp_fixed
+
+    stage = {"conditioning": 0.0, "sampling": 0.0, "unwarp": 0.0}
+    with torch.inference_mode():
+        for _ in range(iters):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cond, init_flow, init_feat = pipe.build_conditioning(src)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            flow = pipe.sampling_impl(cond, init_flow, init_feat, gen)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            unwarp_fixed(src, flow)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            stage["conditioning"] += (t1 - t0) / iters
+            stage["sampling"] += (t2 - t1) / iters
+            stage["unwarp"] += (t3 - t2) / iters
+    return stage
 
 
 def phase_shipped(state):
@@ -1138,30 +1215,18 @@ def phase_shipped(state):
         raise AssertionError("shipped outputs not finite / flow outside [-1, 1]")
     log(f"[shipped] flow |max| {flow.abs().max().item():.4f}; unwarped "
         f"image range [{out.min().item():.3f}, {out.max().item():.3f}]")
+    # the main run's pages and outputs: shipped_int8 and score read them
+    state["shipped"] = dict(src=src.cpu(), out=out.cpu(), flow=flow.cpu(),
+                            peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    log(f"[shipped] peak device memory of the main-path run (weights "
+        f"included) {state['shipped']['peak_gib']:.3f} GiB")
     k1_bar = _flow_vs_attention_twin(pipe, src, flow)
     shapes = _flow_vs_conv_twin(pipe, src, flow, k1_bar)
     _tf32_default_run(pipe, src, flow)
     _time_conv_classes(shapes, state["label"])
 
-    # warm timing, stage by stage (host clock around synchronised work)
     iters = 5
-    stage = {"conditioning": 0.0, "sampling": 0.0, "unwarp": 0.0}
-    with torch.inference_mode():
-        for _ in range(iters):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            cond, init_flow, init_feat = pipe.build_conditioning(src)
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            flow = pipe.sampling_impl(cond, init_flow, init_feat, cuda_gen)
-            torch.cuda.synchronize()
-            t2 = time.perf_counter()
-            unwarp_fixed(src, flow)
-            torch.cuda.synchronize()
-            t3 = time.perf_counter()
-            stage["conditioning"] += (t1 - t0) / iters
-            stage["sampling"] += (t2 - t1) / iters
-            stage["unwarp"] += (t3 - t2) / iters
+    stage = _warm_stages(pipe, src, cuda_gen, iters)
     total = sum(stage.values())
     state["imgs_per_sec"] = batch / total
     log(f"[shipped] {batch / total:.2f} imgs/s at batch {batch} "
@@ -1172,7 +1237,9 @@ def phase_shipped(state):
             f"{v * 1e3 / batch:.2f} ms/img ({state['label']})")
     log(f"[shipped] peak device memory of the shipped runs "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    _profile(pipe, src, cuda_gen, state["label"])
+    state["shipped"].update(imgs_per_sec=batch / total, stage=stage,
+                            profile=_profile(pipe, src, cuda_gen,
+                                             state["label"]))
 
     # the CLI's array function on a 600x450 page (the unwarp runs K3 at a
     # size the TPU kernel's gate rejects)
@@ -1410,6 +1477,7 @@ def _profile(pipe, src, gen, label, top=25):
         if shares[entry] <= 0:
             raise AssertionError(f"the profiled bf16 serving run shows no "
                                  f"{entry} time")
+    return rows, busy, wall
 
 
 # the profiler's kernel names of K1-K4 (a template's name ends in "<")
@@ -1949,8 +2017,10 @@ def phase_probe(state):
 
 
 # ---------------------------------------------------------------- phase 8
-def _stand_in_dataset(n: int, seed: int, source_size: int):
-    """``n`` seeded synthetic pages with sides drawn from 900-2000 px, as
+def _stand_in_dataset(n: int, seed: int, source_size: int,
+                      sides=(900, 2001)):
+    """``n`` seeded synthetic pages with sides drawn from ``sides`` (900-2000
+    px by default), as
     a ``BenchmarkDataset`` (the same ``__len__``/``__getitem__``/
     ``batches`` contract and items; the card's machine has no PIL or cv2
     to decode files) on ``BenchmarkDataset``'s fit canvas.  The pages and
@@ -1962,7 +2032,7 @@ def _stand_in_dataset(n: int, seed: int, source_size: int):
     from dvd_tpu_torch.data.benchmark import BenchmarkDataset
 
     gen = torch.Generator().manual_seed(seed)
-    sizes = torch.randint(900, 2001, (n, 2), generator=gen).tolist()
+    sizes = torch.randint(*sides, (n, 2), generator=gen).tolist()
     pages, sources = [], []
     for h, w in sizes:
         u8 = (_page(1, h, w, gen)[0] * 255).round().to(torch.uint8)
@@ -2212,16 +2282,438 @@ def phase_dataset(state):
                             stage_ms=ms, stats6=stats6)
 
 
+# ---------------------------------------------------------------- int8
+# the int8 products of the serving path, (M, K, N): the live DiT block's
+# (qkv, fc1; cross-attention and proj at 384 x 384 share K) and fc2, then
+# the SATRN decoder's (q/k/v/fc; conv1; conv2), M = 4 pages x 2
+# hypotheses x 1024 tokens at the shipped batch
+INT8_SHAPES = ((8192, 384, 1152), (8192, 384, 1536), (8192, 1536, 384),
+               (8192, 1536, 1536), (8192, 1536, 2048), (8192, 2048, 1536))
+INT8_RECORD = (8192, 1536, 2048)
+INT8_OPS_PER_S = 1979e12        # H100 SXM dense int8 peak
+INT8_KERNEL = ("int8_gemm", "library", "dvd_tpu_torch/ops/quant.py",
+               "dvd_tpu/ops/quant.py:50 (lax.dot_general outside Pallas; "
+               "no TPU kernel)")
+
+
+def _bound(nbytes: float, ops: float = 0.0, peak: float = INT8_OPS_PER_S):
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
+    return (max(by_bytes, by_ops),
+            "bytes" if by_bytes >= by_ops else "operations")
+
+
+def _equal_or_one_ulp(what, got, want) -> str:
+    """``got`` against ``want`` (the CPU's): equal bit for bit, or within
+    eps * |want| (one rounding of the output dtype) elementwise."""
+    g, w = got.float().cpu(), want.float()
+    if torch.equal(g, w):
+        return "bit for bit"
+    bad = (g - w).abs() > torch.finfo(got.dtype).eps * w.abs()
+    if bad.any():
+        raise AssertionError(f"{what}: {int(bad.sum())} elements differ by "
+                             f"more than one {got.dtype} rounding")
+    return f"{int((g != w).sum())} elements one rounding apart"
+
+
+def phase_int8(state):
+    """int8_dense on the card against the CPU at the serving path's
+    shapes, then timed beside a bf16 matmul of the same shape."""
+    from dvd_tpu_torch.ops import quant
+
+    label = state["label"]
+    gen = torch.Generator().manual_seed(SEED + 20)
+    times = state["int8_times"] = {}
+    worst = 0
+    for dtype in (torch.bfloat16, torch.float32):
+        for m, k, n in INT8_SHAPES if dtype == torch.bfloat16 \
+                else INT8_SHAPES[:1]:
+            x = torch.randn((m, k), generator=gen).to(dtype)
+            w = torch.randn((n, k), generator=gen) / math.sqrt(k)
+            b = 0.02 * torch.randn((n,), generator=gen)
+            wq, ws = quant.quantize_rows(w)
+            xq_c, xs_c = quant.quantize_rows(x)
+            acc_c = torch._int_mm(xq_c, wq.t())
+            y_c = quant.int8_dense(x, w, b, qweight=(wq, ws.flatten()))
+            xd, wd, bd = x.cuda(), w.cuda(), b.cuda()
+            wqd, wsd = quant.quantize_rows(wd)
+            wsd = wsd.flatten()
+            xq, xs = quant.quantize_rows(xd)
+            acc = quant.int_mm(xq, wqd.t())
+            y = quant.int8_dense(xd, wd, bd, qweight=(wqd, wsd))
+            torch.cuda.synchronize()
+            for what, got, want in (("activation codes", xq, xq_c),
+                                    ("activation scales", xs, xs_c),
+                                    ("weight codes", wqd, wq),
+                                    ("weight scales", wsd, ws.flatten()),
+                                    ("int32 product", acc, acc_c)):
+                if not torch.equal(got.cpu(), want):
+                    raise AssertionError(f"int8 ({m}, {k}, {n}) {dtype}: "
+                                         f"{what} card != CPU")
+            worst = max(worst, int((acc.cpu() - acc_c).abs().max()))
+            how = _equal_or_one_ulp(f"int8_dense ({m}, {k}, {n})", y, y_c)
+            log(f"[int8] ({m}, {k}, {n}) {str(dtype)[6:]}: codes, scales and "
+                f"the int32 product equal the CPU's; the output {how}")
+            if dtype != torch.bfloat16:
+                continue
+            wt, wb = wqd.t(), wd.bfloat16()
+            f = dict(
+                int_mm=lambda: torch._int_mm(xq, wt),
+                plain=lambda: torch.matmul(xq.double(), wt.double()).int(),
+                bf16_matmul=lambda: torch.matmul(xd, wb.t()),
+                quantize=lambda: quant.quantize_rows(xd),
+                rescale=lambda: ((acc.float() * xs) * wsd + bd).to(dtype),
+                int8_dense=lambda: quant.int8_dense(xd, wd, bd,
+                                                    qweight=(wqd, wsd)))
+            ms = {name: cuda_time_ms(fn) for name, fn in f.items()}
+            ops = 2.0 * m * n * k
+            bounds = {
+                "int_mm": _bound(m * k + n * k + 4 * m * n, ops),
+                "bf16_matmul": _bound(2 * (m * k + n * k + m * n), ops,
+                                      PEAK_FLOPS[torch.bfloat16]),
+                "quantize": _bound(2 * m * k + m * k + 4 * m),
+                "rescale": _bound(4 * m * n + 4 * m + 8 * n + 2 * m * n),
+                "int8_dense": _bound(2 * m * k + n * k + 8 * n + 2 * m * n,
+                                     ops)}
+            times[(m, k, n)] = dict(ms=ms, bounds=bounds)
+            log(f"[int8] ({m}, {k}, {n}) bf16 activations, ms (bound, by): "
+                + "; ".join(f"{name} {ms[name]:.4f} ({bounds[name][0]:.4f}, "
+                            f"{bounds[name][1]})" for name in bounds)
+                + f"; plain f64 product {ms['plain']:.4f}; int8_dense / bf16 "
+                f"matmul {ms['int8_dense'] / ms['bf16_matmul']:.2f}x "
+                f"({label})")
+    state["int8_err"] = worst
+
+
+def _int8_expected(pipe) -> int:
+    """int8 products a serving run makes, from the code: each int8 layer
+    of the live block once per stream, each of the decoder's once, per
+    DiT call (one per DDIM step; the hypotheses are batched)."""
+    live = f"blocks_{pipe.dit.depth - 1}."
+    names = [name for name, _ in pipe.dit.int8_layers()]
+    per_call = (sum(n.startswith(live) for n in names) * pipe.dit.n_streams
+                + sum(n.startswith("decoder.") for n in names))
+    return pipe.sched.num_timesteps * per_call
+
+
+@contextlib.contextmanager
+def int8_codes(book: list, replay: bool, stats: dict):
+    """While open, every ``quantize_rows`` of the port (activations and
+    weights) is recorded in ``book`` (the card's run), or (``replay``, the
+    CPU's run) compared with the record of the same call and replaced by
+    it: where f32 rounding put an element across a rounding tie on one
+    device, its code differs by one step; ``stats`` counts those flips.
+    Patched here, never in the package."""
+    from dvd_tpu_torch.models import layers, satrn
+    from dvd_tpu_torch.ops import quant
+
+    orig = quant.quantize_rows
+    calls = iter(range(len(book))) if replay else None
+
+    def hooked(x):
+        q, s = orig(x)
+        if not replay:
+            book.append(q.cpu())
+            return q, s
+        want = book[next(calls)]
+        diff = want.int() - q.int()
+        if want.shape != q.shape or int(diff.abs().max()) > 1:
+            raise AssertionError("int8 codes: a code moved by more than one "
+                                 "step between the card and the CPU")
+        stats["flips"] = stats.get("flips", 0) + int((diff != 0).sum())
+        stats["codes"] = stats.get("codes", 0) + q.numel()
+        return want.to(q.device), s
+
+    mods = (quant, layers, satrn)
+    for mod in mods:
+        mod.quantize_rows = hooked
+    try:
+        yield
+    finally:
+        for mod in mods:
+            mod.quantize_rows = orig
+
+
+def phase_slice_int8(state):
+    """The f32 serving slice under int8, card against CPU (slice32's
+    inputs and bars), the CPU taking the card's int8 codes where a tie
+    flipped (counted; they must be rare)."""
+    from dvd_tpu_torch.config import default_config
+
+    book, stats = [], {}
+    _slice_card_vs_cpu(
+        default_config().replace(
+            model={"compute_dtype": "float32", "quantize": "int8"},
+            diffusion={"n_batch": 2}),
+        "slice_int8", codes=lambda dev: int8_codes(book, dev == "cpu", stats))
+    log(f"[slice_int8] int8 codes: {stats['flips']} of {stats['codes']} "
+        f"differ by one step between the card and the CPU (the CPU took "
+        f"the card's); {len(book)} quantize passes")
+    if stats["flips"] > 1e-3 * stats["codes"]:
+        raise AssertionError(f"int8 code flips {stats}")
+
+
+# profiler names: cuBLAS(Lt)'s int8 GEMMs, and the elementwise and reduction
+# kernels of the quantize and rescale passes (and of the rest of the model)
+INT8_GEMM_NAME = re.compile(r"imma|i8i8|s8s8|int8|_s8_|i8_", re.I)
+GEMM_NAME = re.compile(r"gemm|nvjet|xmma|cutlass|cublas", re.I)
+
+
+def _kernel_groups(rows, busy, what) -> dict:
+    """Device ms of the int8 GEMMs, the other GEMMs, the elementwise and
+    the reduction kernels in a profile, logged with their shares."""
+    groups = {"int8 GEMM": lambda k: bool(INT8_GEMM_NAME.search(k)),
+              "other GEMM": lambda k: bool(GEMM_NAME.search(k))
+              and not INT8_GEMM_NAME.search(k),
+              "elementwise": lambda k: "elementwise" in k,
+              "reduction": lambda k: "reduce" in k.lower()}
+    out = {}
+    for name, pick in groups.items():
+        mine = [r for r in rows if pick(r[0])]
+        ms = out[name] = sum(r[1] for r in mine) / 1e3
+        log(f"[profile] {what}: {name} {ms:.3f} ms in "
+            f"{sum(r[2] for r in mine)} launches ({ms / busy:.1%} of busy)")
+    return out
+
+
+def phase_shipped_int8(state):
+    """The shipped config with ``quantize="int8"``: the main path once
+    (counted, routes checked), the flow's distance from the bf16 run on
+    the same pages, weights and x_T, imgs/s and ms by stage, peak
+    memory, and one profiled run."""
+    from dvd_tpu_torch.config import default_config
+    from dvd_tpu_torch.evaluation.pipeline import DewarpPipeline, unwarp_fixed
+    from dvd_tpu_torch.ops import quant
+
+    label = state["label"]
+    cfg = default_config().replace(model={"quantize": "int8"})
+    m, d = cfg.model, cfg.diffusion
+    batch = cfg.data.eval_device_batch
+    pipe = DewarpPipeline.create(
+        cfg, "cuda", generator=torch.Generator().manual_seed(SEED + 3))
+    dtypes = {str(layer.weight.dtype) for _, layer in pipe.dit.int8_layers()}
+    src = state["shipped"]["src"].cuda()        # the bf16 run's pages
+    cuda_gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    log(f"[shipped_int8] {m.dit_variant} {m.compute_dtype} "
+        f"quantize={m.quantize} batch {batch}, {m.source_size}^2, "
+        f"{d.diffusion_steps} DDIM steps x {d.n_batch} hypotheses; "
+        f"{len(pipe.dit.int8_layers())} int8 layers with {dtypes} "
+        f"weights ({label})")
+    if dtypes != {"torch.float32"}:
+        raise AssertionError(f"int8 layers keep f32 weights, not {dtypes}")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    flow = pipe.dewarp_flow(src, generator=cuda_gen)
+    out = unwarp_fixed(src, flow)
+    torch.cuda.synchronize()
+    counts, n_int8 = read_launches(), quant.launches
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[shipped_int8] peak device memory of the main-path run (weights "
+        f"included) {peak:.3f} GiB against bf16's "
+        f"{state['shipped']['peak_gib']:.3f} GiB")
+    check_conv_route("shipped_int8", torch.bfloat16)
+    check_gather_route("shipped_int8")
+    k1 = routes("attention")
+    expected = _int8_expected(pipe)
+    log(f"[shipped_int8] launches in one main-path run: {counts}; K1 by "
+        f"route {k1}; int8 products {n_int8} (the code's count {expected})")
+    if counts != SERVE_LAUNCHES or n_int8 != expected \
+            or k1 != {"wgmma": SERVE_LAUNCHES["attention"], "f32": 0}:
+        raise AssertionError(f"shipped_int8 launches {counts}, K1 {k1}, int8 "
+                             f"{n_int8} (expected {expected})")
+    if flow.shape != (batch, m.image_size, m.image_size, 2) \
+            or out.shape != src.shape or not (
+                torch.isfinite(flow).all() and torch.isfinite(out).all()
+                and flow.abs().max() <= 1):
+        raise AssertionError("int8 outputs malformed, not finite or the "
+                             "flow outside [-1, 1]")
+    dist = (flow.cpu() - state["shipped"]["flow"]).abs()
+    log(f"[shipped_int8] flow against the bf16 shipped run (same pages, "
+        f"weights and x_T; random weights, a reading): max |d| "
+        f"{dist.max().item():.4e}, mean |d| {dist.mean().item():.4e}; "
+        f"image range [{out.min().item():.3f}, {out.max().item():.3f}]")
+    state["shipped_int8"] = dict(out=out.cpu(), launches=n_int8)
+
+    iters = 5
+    stage = _warm_stages(pipe, src, cuda_gen, iters)
+    total = sum(stage.values())
+    bf16 = state["shipped"]
+    log(f"[shipped_int8] {batch / total:.2f} imgs/s at batch {batch} "
+        f"({total * 1e3:.1f} ms per batch, mean of {iters} warm runs; the "
+        f"bf16 run read {bf16['imgs_per_sec']:.2f}; {label})")
+    for k, v in stage.items():
+        log(f"[shipped_int8]   {k}: {v * 1e3:.2f} ms per batch (bf16 "
+            f"{bf16['stage'][k] * 1e3:.2f}; {label})")
+    rows, busy, _ = _profile(pipe, src, cuda_gen, label)
+    int8 = _kernel_groups(rows, busy, "int8 run")
+    b_rows, b_busy, _ = bf16["profile"]
+    ref = _kernel_groups(b_rows, b_busy, "bf16 run")
+    for key, us, n in rows:
+        if INT8_GEMM_NAME.search(key):
+            log(f"[profile]   int8 GEMM kernel {us / 1e3:.3f} ms x{n}: "
+                f"{key[:110]}")
+    log(f"[shipped_int8] device busy {busy:.1f} ms against bf16's "
+        f"{b_busy:.1f} ms; GEMMs + elementwise + reductions "
+        f"{sum(int8.values()):.3f} ms against {sum(ref.values()):.3f} ms")
+    if int8["int8 GEMM"] <= 0:
+        raise AssertionError("the profiled int8 run shows no int8 GEMM time")
+
+
+# the corruptions the card's machine can run (it has no cv2)
+def _corruptions_without_cv2():
+    from dvd_tpu_torch.data.corruptions import CORRUPTIONS, NEEDS_CV2
+
+    return [n for n in sorted(CORRUPTIONS) if n not in NEEDS_CV2]
+
+
+def phase_corrupt(state):
+    """``run_corruption_sweep`` (int8 serving) over 6 stand-in pages with
+    every corruption that needs no cv2 at severities 1 and 5: one
+    ``run_stats.json`` per combination, and every page the driver read
+    equal to ``corrupt`` of that page on the host."""
+    from dvd_tpu_torch.cli.run_sampling import run_corruption_sweep
+    from dvd_tpu_torch.config import default_config
+    from dvd_tpu_torch.data import corruptions
+    from dvd_tpu_torch.evaluation.pipeline import DewarpPipeline
+    from dvd_tpu_torch.ops import quant
+
+    cfg = default_config().replace(model={"quantize": "int8"},
+                                   data={"eval_dataset_name": "stand_in"})
+    cfg = dataclasses.replace(cfg, name="sweep")
+    pipe = DewarpPipeline.create(
+        cfg, "cuda", generator=torch.Generator().manual_seed(SEED + 3))
+    ds, sizes = _stand_in_dataset(6, SEED + 30, cfg.model.source_size,
+                                  sides=(500, 801))
+    names, sevs = _corruptions_without_cv2(), (1, 5)
+    seen = {}
+    item_fn = corruptions.corrupt_item
+
+    def recorded(item, name, sev):
+        out = item_fn(item, name, sev)
+        seen[(name, sev, item["path"])] = (item, out)
+        return out
+
+    corruptions.corrupt_item = recorded
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        stats = run_corruption_sweep(
+            pipe, ds, cfg, names, sevs, seed=SEED,
+            out_root=os.path.join(state["workdir"], "sweep"),
+            save_outputs=False, save_coord_maps=True)
+    finally:
+        corruptions.corrupt_item = item_fn
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, n_int8 = read_launches(), quant.launches
+    check_conv_route("corrupt", torch.bfloat16)
+    check_gather_route("corrupt")
+    log(f"[corrupt] {len(names)} corruptions {names} x severities {sevs} over "
+        f"{len(ds)} stand-in pages ({min(map(min, sizes))}-"
+        f"{max(map(max, sizes))} px, canvas {ds.pad_to}^2), int8, batch "
+        f"{cfg.data.eval_device_batch}: {wall:.2f} s; launches {counts}, "
+        f"int8 products {n_int8} ({state['label']})")
+    if min(counts[k] for k in ("attention", "conv3x3", "gather_bilinear",
+                               "unwarp")) <= 0 or n_int8 <= 0:
+        raise AssertionError(f"a kernel of the sweep did not launch: {counts}")
+    out_root = os.path.join(state["workdir"], "sweep", "stand_in")
+    for name in names:
+        for sev in sevs:
+            out_dir = os.path.join(out_root, f"sweep_corrupt_{name}_s{sev}")
+            with open(os.path.join(out_dir, "run_stats.json")) as f:
+                rs = json.load(f)
+            maps = sorted(os.listdir(os.path.join(out_dir, "dewarped_pred")))
+            if rs != stats[(name, sev)] or rs["images"] != len(ds) \
+                    or len(maps) != len(ds):
+                raise AssertionError(f"{out_dir}: {rs}, {len(maps)} maps")
+            log(f"[corrupt] {name} s{sev} run_stats.json {json.dumps(rs)}")
+            for path in ds.paths:
+                item, got = seen[(name, sev, path)]
+                want_src = corruptions.corrupt(item["source_image"], name, sev)
+                pad = item["source_padded"].astype(np.float32) / 255.0
+                want_pad = (corruptions.corrupt(pad, name, sev) * 255).astype(
+                    np.uint8)
+                if not (np.array_equal(got["source_image"], want_src)
+                        and np.array_equal(got["source_padded"], want_pad)):
+                    raise AssertionError(f"{name} s{sev} {path}: the page "
+                                         f"the driver read is not corrupt's")
+    log(f"[corrupt] every page the driver read equals corrupt() of it on "
+        f"the host ({len(seen)} page x combination pairs)")
+
+
+def phase_score(state):
+    """The port's SIFT-flow engine built with g++ here, then the shipped
+    (bf16) and int8 outputs of the four stand-in pages scored against the
+    pages themselves at equal size: MS-SSIM and the native LD/AD.  With
+    random weights these are readings, not bars."""
+    from dvd_tpu_torch import native
+    from dvd_tpu_torch.evaluation.metrics import evaluate_pair
+
+    t0 = time.perf_counter()
+    ok = native.available()
+    info = native.build_info()
+    gxx = subprocess.run(["g++", "--version"], capture_output=True,
+                         text=True).stdout.splitlines()[:1]
+    how = "built" if info["build_seconds"] else "loaded"
+    log(f"[score] SIFT-flow engine: {how} in {time.perf_counter() - t0:.2f} "
+        f"s (g++ {info['build_seconds']:.2f} s; {gxx}) -> {info['path']}")
+    if not ok:
+        raise AssertionError(f"the SIFT-flow engine did not build: "
+                             f"{native.build_error()}")
+    pages = (state["shipped"]["src"].numpy() * 255).astype(np.float32)
+    same = evaluate_pair(pages[0], pages[0], protocol_area=None,
+                         flow_backend="native")
+    log(f"[score] a page against itself: {same}")
+    if same["ld"] > 0.05 or abs(same["ms_ssim"] - 1) > 1e-6:
+        raise AssertionError(f"a page against itself scored {same}")
+    for tag, outs in (("shipped bf16", state["shipped"]["out"]),
+                      ("shipped int8", state["shipped_int8"]["out"])):
+        t0 = time.perf_counter()
+        rows = [evaluate_pair(o * 255, p, protocol_area=None,
+                              flow_backend="native")
+                for o, p in zip(outs.numpy(), pages)]
+        if not all(math.isfinite(v) for r in rows for v in r.values()):
+            raise AssertionError(f"{tag}: scores not finite: {rows}")
+        mean = {k: float(np.mean([r[k] for r in rows])) for k in rows[0]}
+        log(f"[score] {tag} unwarped vs its page, {len(rows)} pages "
+            f"{pages.shape[1]}x{pages.shape[2]} (random weights: readings): "
+            f"mean {json.dumps(mean)}; per page "
+            f"{json.dumps(rows)} ({time.perf_counter() - t0:.2f} s)")
+
+
 # ---------------------------------------------------------------- main
-def main() -> int:
+PHASES = (phase_env, phase_kernels, phase_int8, phase_slice32,
+          phase_slice_int8, phase_shipped, phase_shipped_int8, phase_train32,
+          phase_train, phase_probe, phase_dataset, phase_corrupt, phase_score)
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="drive dvd_tpu_torch on one GPU")
+    ap.add_argument("--phases", default=None, metavar="A,B",
+                    help="run only these phases, by name (e.g. env,int8; "
+                         "a phase needing an earlier one's state needs it "
+                         "too) and print no result lines")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: chip_smoke.py runs on a GPU only")
+    phases = PHASES
+    if args.phases:
+        names = args.phases.split(",")
+        phases = [p for p in PHASES if p.__name__[len("phase_"):] in names]
+        if len(phases) != len(names):
+            ap.error(f"--phases: unknown in {names}")
     state: dict = {}
     with tempfile.TemporaryDirectory() as work:
         state["workdir"] = work
-        for phase in (phase_env, phase_kernels, phase_slice32, phase_shipped,
-                      phase_train32, phase_train, phase_probe, phase_dataset):
+        for phase in phases:
             phase(state)
+    if args.phases:
+        log(f"partial run: {args.phases} passed; no result lines")
+        return 0
     kernels = []
     launches = {"train": state["train_launches"], "serving": state["serve_launches"],
                 "train32": state["train32_launches"],
@@ -2238,6 +2730,21 @@ def main() -> int:
             "library_ms": r["library_ms"], "case": RECORD_CASE[name],
             **({"yardstick_ms": r["yardstick_ms"]} if "yardstick_ms" in r else {}),
         })
+    # the int8 GEMM: a library call (torch._int_mm), no hand-written kernel
+    name, route, src, replaces = INT8_KERNEL
+    r = state["int8_times"][INT8_RECORD]
+    ms, bounds = r["ms"], r["bounds"]
+    kernels.append({
+        "name": name, "route": route, "source": src, "replaces": replaces,
+        "launches": state["shipped_int8"]["launches"],
+        "launches_from": "serving int8",
+        "max_abs_err": state["int8_err"], "ms": ms["int_mm"],
+        "plain_ms": ms["plain"], "bound_ms": bounds["int_mm"][0],
+        "bound_by": bounds["int_mm"][1], "library_ms": ms["int_mm"],
+        "case": f"(M, K, N) = {INT8_RECORD}",
+        "bf16_matmul_ms": ms["bf16_matmul"], "quantize_ms": ms["quantize"],
+        "rescale_ms": ms["rescale"], "int8_dense_ms": ms["int8_dense"],
+        "int8_dense_bound_ms": bounds["int8_dense"][0]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,14 +8,20 @@
     python -m dvd_tpu_torch.cli.run_sampling --eval_dataset DIR \
         --eval_dataset_name docunet --name exp1 [--batch 4] [--profile DIR]
 
-    common: [--seed 42] [--set model.compute_dtype=float32] [--device cuda]
+    # the robustness sweep: each corruption (one id, or all) at severities
+    # 1-5 -> vis_hp/{ds}/{name}_corrupt_{id}_s{1..5}/
+    python -m dvd_tpu_torch.cli.run_sampling --eval_dataset DIR \
+        --eval_dataset_name docunet --name exp1 --corruption gaussian_noise
+
+    common: [--seed 42] [--set model.compute_dtype=float32]
+            [--set model.quantize=int8] [--device cuda]
 
 Weights are drawn from a seed (``--seed`` for ``--image``,
 ``train.seed`` for a dataset, as ``run_sampling.py``), then replaced by the
 converted ``.msgpack`` files found at ``cfg.paths`` (``--set
 paths.model_path=...``; see ``cli/convert_ckpt.py``); the CLI prints which
-were loaded.  The corruption sweep (``--corruption``) is not ported yet.
-PIL and cv2 are imported only to read and write files;
+were loaded.  The sweep's weights are drawn from ``--seed``, as
+``run_sampling.py``'s.  PIL and cv2 are imported only to read and write files;
 :func:`dewarp_image` takes and returns numpy arrays.
 """
 
@@ -32,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from dvd_tpu_torch.config import DvDConfig, default_config
+from dvd_tpu_torch.data.corruptions import CorruptedDataset, corruption_names
 from dvd_tpu_torch.evaluation.pipeline import DewarpPipeline, unwarp_fixed
 from dvd_tpu_torch.training.checkpoint import maybe_load_pipeline_weights
 
@@ -83,6 +90,32 @@ def build_pipeline(cfg: DvDConfig, seed: int,
         cfg, device, generator=torch.Generator().manual_seed(seed))
 
 
+def run_corruption_sweep(pipe: DewarpPipeline, dataset, cfg: DvDConfig,
+                         names, severities=(1, 2, 3, 4, 5), seed: int = 42,
+                         out_root: str = "vis_hp", **run_kw) -> dict:
+    """The robustness sweep (reference ``run_sampling.py:52-58``): every
+    page of ``dataset`` (a ``BenchmarkDataset``) under each corruption of
+    ``names`` at each of ``severities``, one ``run_benchmark`` each into
+    ``{out_root}/{eval_dataset_name}/{cfg.name}_corrupt_{id}_s{severity}``,
+    all on one pipeline.  ``run_kw`` goes to ``run_benchmark``.  Returns
+    ``{(id, severity): stats}``."""
+    from dvd_tpu_torch.evaluation.driver import run_benchmark
+
+    results = {}
+    for name in names:
+        for sev in severities:
+            out_dir = os.path.join(out_root, cfg.data.eval_dataset_name,
+                                   f"{cfg.name}_corrupt_{name}_s{sev}")
+            stats = run_benchmark(pipe, CorruptedDataset(dataset, name, sev),
+                                  out_dir,
+                                  batch_size=cfg.data.eval_device_batch,
+                                  seed=seed, **run_kw)
+            print(f"{name} s{sev}: {stats['imgs_per_sec']} imgs/sec, "
+                  f"{stats['images']} images")
+            results[(name, sev)] = stats
+    return results
+
+
 def main(argv: Optional[list] = None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--image", default=None,
@@ -100,7 +133,8 @@ def main(argv: Optional[list] = None) -> None:
                     help="write a torch.profiler trace of the dataset run's "
                          "steady state to DIR")
     ap.add_argument("--corruption", default=None,
-                    help="corruption-robustness sweep (not ported yet)")
+                    help="corruption-robustness sweep over --eval_dataset: "
+                         "one corruption id, or 'all'")
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--set", action="append", dest="overrides",
                     metavar="K=V", help="config override, e.g. "
@@ -109,10 +143,6 @@ def main(argv: Optional[list] = None) -> None:
                     help="torch device (default cuda; 'cpu' runs the plain "
                          "twins of the kernels)")
     args = ap.parse_args(argv)
-    if args.corruption:
-        raise NotImplementedError(
-            "the corruption sweep (--corruption) is not ported yet "
-            "(ROADMAP.md Queue 1 item 19)")
 
     over = parse_overrides(args.overrides)
     data = over.setdefault("data", {})
@@ -143,6 +173,17 @@ def main(argv: Optional[list] = None) -> None:
         return
     if not cfg.data.eval_dataset:
         ap.error("give --image or --eval_dataset")
+
+    if args.corruption:
+        from dvd_tpu_torch.data.benchmark import BenchmarkDataset
+
+        names = corruption_names(args.corruption)
+        pipe = build_pipeline(cfg, args.seed, args.device)
+        print(f"loaded weights: {maybe_load_pipeline_weights(pipe, cfg)}")
+        ds = BenchmarkDataset.from_dir(cfg.data.eval_dataset,
+                                       source_size=cfg.model.source_size)
+        run_corruption_sweep(pipe, ds, cfg, names, seed=args.seed)
+        return
 
     from dvd_tpu_torch.evaluation.driver import run_from_config
 

@@ -21,9 +21,14 @@ feature re-warp (K3) and both unwarps (the fused unwarp, one launch).
 Weights are drawn from a seed or loaded from converted files
 (``training/checkpoint.py:maybe_load_pipeline_weights``).
 
+``model.quantize="int8"`` serves the DiT with W8A8 blocks and decoder
+(``ops/quant.py``, ``models/dit.py``): those layers keep f32 weights (the
+int8 codes are quantized from them, as ``dvd_tpu`` quantizes from its f32
+parameters) while the rest of the DiT is stored in the compute dtype.
+
 Not ported yet (raise ``NotImplementedError``): the VGG conditioning
 (``train_VGG=False``), GeoTr's flow (``use_init_flow``), the alternative
-denoisers, int8 serving, and the 'seq'/'one' cross-attention modes.
+denoisers and the 'seq'/'one' cross-attention modes.
 """
 
 from __future__ import annotations
@@ -59,8 +64,8 @@ def check_config(cfg: DvDConfig) -> None:
         todo.append("train_VGG=False (VGG16 conditioning)")
     if m.use_init_flow:
         todo.append("use_init_flow=True (the full GeoTr)")
-    if m.quantize != "none":
-        todo.append(f"quantize={m.quantize!r} (int8 serving)")
+    if m.quantize not in ("none", "int8"):
+        todo.append(f"quantize={m.quantize!r}")
     if m.separate_cross_attn != "para":
         todo.append(f"separate_cross_attn={m.separate_cross_attn!r}")
     if m.serve_cond_chunk:
@@ -70,6 +75,22 @@ def check_config(cfg: DvDConfig) -> None:
                     f"param_dtype={m.param_dtype!r}")
     if todo:
         raise NotImplementedError("not ported yet: " + "; ".join(todo))
+
+
+def _place_dit(dit: DiT, device: torch.device, dtype: torch.dtype) -> None:
+    """Move the DiT to ``device`` and cast it to ``dtype``, all but its
+    int8 layers' parameters, which stay f32 (``DiT.int8_layers``)."""
+    keep = {id(p) for _, layer in dit.int8_layers()
+            for p in layer.parameters()}
+    dit.to(device)
+    with torch.no_grad():
+        for p in dit.parameters():
+            if id(p) not in keep:
+                p.data = p.data.to(dtype)
+        for mod in dit.modules():
+            for name, buf in mod.named_buffers(recurse=False):
+                if buf.is_floating_point():
+                    setattr(mod, name, buf.to(dtype))
 
 
 @dataclasses.dataclass
@@ -94,20 +115,26 @@ class DewarpPipeline:
         the caller asks for the CPU); with a (CPU) ``generator`` their
         weights are drawn from it (``seeded_init_``), else they keep
         torch's default init until weights are loaded.  ``dit`` replaces
-        the config's DiT (tests use a narrow one).  With ``train`` the DiT
+        the config's DiT (tests use a narrow one; under int8 it must be
+        built with ``quant=True``).  With ``train`` the DiT
         keeps ``model.param_dtype`` parameters that require gradients (the
         training step computes in ``compute_dtype`` under autocast), and
         drawn weights start its adaLN and final layers at zero, as the
         reference's training init; the aux nets stay frozen either way."""
         check_config(cfg)
         m = cfg.model
+        quant = m.quantize == "int8"
         device = torch.device(device)
         if dit is None:
             dit = make_dit(m.dit_variant, input_size=m.image_size,
                            in_channels=m.in_channels, tv=m.time_variant,
                            chain_blocks=m.chain_blocks,
                            with_mask=not m.use_gt_mask,
-                           with_line=m.use_line_mask and not m.use_gt_mask)
+                           with_line=m.use_line_mask and not m.use_gt_mask,
+                           quant=quant)
+        if dit.quant != quant:
+            raise ValueError(f"model.quantize={m.quantize!r} with a DiT "
+                             f"built with quant={dit.quant}")
         nets = dict(dit=dit, seg=Seg(m.source_size), line=TextLineUNet(),
                     geotr=GeoTrSegInf(m.source_size))
         if generator is not None:
@@ -119,10 +146,12 @@ class DewarpPipeline:
                               rescale_timesteps=cfg.diffusion.rescale_timesteps,
                               device=device)
         # frozen (eval, no grad).  For serving the DiT is stored in the
-        # compute dtype; the aux nets keep f32 weights and cast them, with
-        # BN folded, once per weight set (fold_conv_bn)
+        # compute dtype, but for its int8 layers' f32 weights; the aux nets
+        # keep f32 weights and cast them, with BN folded, once per weight
+        # set (fold_conv_bn)
         dtype = DTYPES[m.compute_dtype]
-        nets["dit"].to(device, DTYPES[m.param_dtype] if train else dtype)
+        _place_dit(nets["dit"], device,
+                   DTYPES[m.param_dtype] if train else dtype)
         for net in nets.values():
             net.to(device).eval().requires_grad_(False)
         if train:

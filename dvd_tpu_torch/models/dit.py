@@ -22,6 +22,13 @@ sampling-time timestep remap (t > 600 -> 2, t > 300 -> 1).
 Layout: flows (N, S, S, 2) channel-last (the sampler's and grid_sample's
 grid layout); images and feature maps NCHW; tokens (N, T, D).
 
+int8 serving (``quant``, ``dvd_tpu``'s ``model.quantize="int8"``): the
+live block's attention, cross-attention and MLP projections and the SATRN
+decoder's projections and 1x1 convs are W8A8 (``ops/quant.py``); the
+embedders, the timestep MLP, adaLN, the conditioning pyramid and
+``final_layer2`` stay in floating point.  :meth:`DiT.int8_layers` lists
+the quantized layers, whose weights serving keeps in f32.
+
 Dtypes: the DiT computes in its weights' dtype (serving stores it in the
 compute dtype), or, under ``torch.autocast``, in the autocast dtype with
 f32 weights (training keeps f32 parameters and computes in bf16, as
@@ -99,12 +106,13 @@ class DiTBlock(nn.Module):
     """adaLN-Zero DiT block with shared parallel cross-attention ('para')."""
 
     def __init__(self, hidden_size: int, num_heads: int,
-                 mlp_ratio: float = 4.0):
+                 mlp_ratio: float = 4.0, quant: bool = False):
         super().__init__()
         self.adaLN_modulation_1 = nn.Linear(hidden_size, 6 * hidden_size)
-        self.cross_attn = CrossAttention(hidden_size, num_heads)
-        self.attn = SelfAttention(hidden_size, num_heads)
-        self.mlp = Mlp(hidden_size, int(hidden_size * mlp_ratio), hidden_size)
+        self.cross_attn = CrossAttention(hidden_size, num_heads, quant)
+        self.attn = SelfAttention(hidden_size, num_heads, quant)
+        self.mlp = Mlp(hidden_size, int(hidden_size * mlp_ratio), hidden_size,
+                       quant)
 
     def forward(self, x, t_emb, streams_kv):
         ada = self.adaLN_modulation_1(F.silu(t_emb))
@@ -162,11 +170,13 @@ class DiT(nn.Module):
                  depth: int = 12, num_heads: int = 6, mlp_ratio: float = 4.0,
                  time_freq_size: int = 256, tv: bool = True,
                  chain_blocks: bool = False, with_mask: bool = True,
-                 with_line: bool = True, dropout: float = 0.1):
+                 with_line: bool = True, dropout: float = 0.1,
+                 quant: bool = False):
         super().__init__()
         self.input_size, self.patch_size = input_size, patch_size
         self.in_channels, self.hidden_size = in_channels, hidden_size
         self.depth, self.tv, self.chain_blocks = depth, tv, chain_blocks
+        self.quant = quant
         grid = input_size // patch_size
         self.register_buffer("pos", torch.from_numpy(
             get_2d_sincos_pos_embed(hidden_size, grid))[None], persistent=False)
@@ -183,15 +193,32 @@ class DiT(nn.Module):
             if with_line else None
         for i in range(depth):
             setattr(self, f"blocks_{i}",
-                    DiTBlock(hidden_size, num_heads, mlp_ratio))
+                    DiTBlock(hidden_size, num_heads, mlp_ratio, quant))
         k = 1 + int(with_mask) + int(with_line) + int(tv)
         self.n_streams = k
         self.decoder = satrn.Decoder(
             n_layers=6, n_head=6, d_k=64 * k, d_v=64 * k,
             d_model=hidden_size * k, n_position=input_size // 2, d_inner=2048,
-            dropout=dropout)
+            dropout=dropout, quant=quant)
         self.final_layer2 = FinalLayer(hidden_size * k, patch_size,
                                        in_channels, n_streams=k)
+        for name, layer in self.int8_layers():
+            layer.qname = name      # named in int8_dense's shape errors
+
+    def int8_layers(self):
+        """(name, layer) of every layer that runs W8A8 under ``quant``
+        (none without it): the blocks' and the decoder's projections and
+        the decoder's 1x1 convs."""
+        if not self.quant:
+            return []
+        owners = (CrossAttention, SelfAttention, Mlp, satrn.SATRNAttention)
+        out = []
+        for name, mod in self.named_modules():
+            if isinstance(mod, owners) or (
+                    isinstance(mod, satrn.ConvBNReLU) and mod.quant):
+                out += [(f"{name}.{n}", c) for n, c in mod.named_children()
+                        if isinstance(c, (nn.Linear, nn.Conv2d))]
+        return out
 
     @property
     def dtype(self) -> torch.dtype:

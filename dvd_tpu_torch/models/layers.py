@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from dvd_tpu_torch.ops.kernels.attention import attention
 from dvd_tpu_torch.ops.kernels.conv3x3 import (conv3x3, conv3x3_trainable,
                                                k_major_weights)
+from dvd_tpu_torch.ops.quant import qlinear, quantize_rows
 from dvd_tpu_torch.utils.dtypes import at_least_f32
 
 
@@ -53,29 +54,49 @@ def merge_heads(x: torch.Tensor) -> torch.Tensor:
 
 
 class SelfAttention(nn.Module):
-    """timm-style fused-QKV self attention (qkv_bias=True)."""
+    """timm-style fused-QKV self attention (qkv_bias=True); with ``quant``
+    the projections are W8A8 (``ops/quant.py``)."""
 
-    def __init__(self, dim: int, num_heads: int):
+    def __init__(self, dim: int, num_heads: int, quant: bool = False):
         super().__init__()
-        self.num_heads = num_heads
+        self.num_heads, self.quant = num_heads, quant
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        q, k, v = self.qkv(x).chunk(3, dim=-1)
+        q, k, v = project(self.qkv, x, self.quant).chunk(3, dim=-1)
         h = self.num_heads
         out = scaled_dot_attention(split_heads(q, h), split_heads(k, h),
                                    split_heads(v, h))
-        return self.proj(merge_heads(out))
+        return project(self.proj, merge_heads(out), self.quant)
+
+
+def project(layer: nn.Module, x: torch.Tensor, quant: bool,
+            prequant=None) -> torch.Tensor:
+    """``layer(x)``, or with ``quant`` its W8A8 route (``ops/quant.py``;
+    ``prequant``: the input's shared ``quantize_rows``)."""
+    return qlinear(layer, x, prequant) if quant else layer(x)
+
+
+def shared_prequant(query, key, value):
+    """``quantize_rows`` of each distinct input of an attention's three
+    projections, computed once (k and v usually share a tensor)."""
+    pq = quantize_rows(query)
+    pk = pq if key is query else quantize_rows(key)
+    pv = pk if value is key else (pq if value is query
+                                  else quantize_rows(value))
+    return pq, pk, pv
 
 
 class CrossAttention(nn.Module):
     """``nn.MultiheadAttention(batch_first=True)`` equivalent with separate
-    q/k/v projections (bias) and an output projection (bias)."""
+    q/k/v projections (bias) and an output projection (bias); with
+    ``quant`` the projections are W8A8, each distinct input quantized
+    once."""
 
-    def __init__(self, dim: int, num_heads: int):
+    def __init__(self, dim: int, num_heads: int, quant: bool = False):
         super().__init__()
-        self.num_heads = num_heads
+        self.num_heads, self.quant = num_heads, quant
         self.q_proj = nn.Linear(dim, dim)
         self.k_proj = nn.Linear(dim, dim)
         self.v_proj = nn.Linear(dim, dim)
@@ -83,22 +104,28 @@ class CrossAttention(nn.Module):
 
     def forward(self, query, key, value):
         h = self.num_heads
-        out = scaled_dot_attention(split_heads(self.q_proj(query), h),
-                                   split_heads(self.k_proj(key), h),
-                                   split_heads(self.v_proj(value), h))
-        return self.out_proj(merge_heads(out))
+        inputs = (query, key, value)
+        pre = shared_prequant(*inputs) if self.quant else (None,) * 3
+        q, k, v = (project(layer, x, self.quant, p) for layer, x, p in zip(
+            (self.q_proj, self.k_proj, self.v_proj), inputs, pre))
+        out = merge_heads(scaled_dot_attention(
+            split_heads(q, h), split_heads(k, h), split_heads(v, h)))
+        return project(self.out_proj, out, self.quant)
 
 
 class Mlp(nn.Module):
-    """timm Mlp: fc1 -> GELU(tanh) -> fc2."""
+    """timm Mlp: fc1 -> GELU(tanh) -> fc2; with ``quant`` both W8A8."""
 
-    def __init__(self, dim: int, hidden_dim: int, out_dim: int):
+    def __init__(self, dim: int, hidden_dim: int, out_dim: int,
+                 quant: bool = False):
         super().__init__()
+        self.quant = quant
         self.fc1 = nn.Linear(dim, hidden_dim)
         self.fc2 = nn.Linear(hidden_dim, out_dim)
 
     def forward(self, x):
-        return self.fc2(F.gelu(self.fc1(x), approximate="tanh"))
+        y = F.gelu(project(self.fc1, x, self.quant), approximate="tanh")
+        return project(self.fc2, y, self.quant)
 
 
 class PatchEmbed(nn.Module):

@@ -114,7 +114,16 @@ class TrainState:
         return dict(self.model.named_parameters())
 
 
+def check_trainable(cfg: DvDConfig) -> None:
+    """int8 is a serving path (rounding has no gradient), as in
+    ``dvd_tpu``: training under it raises."""
+    if cfg.model.quantize != "none":
+        raise ValueError(f"model.quantize={cfg.model.quantize!r} cannot be "
+                         "trained through; set quantize='none'")
+
+
 def create_train_state(cfg: DvDConfig, model: DiT) -> TrainState:
+    check_trainable(cfg)
     params = dict(model.named_parameters())
     sampler_state = None
     if cfg.train.schedule_sampler == "loss-second-moment":
@@ -150,9 +159,7 @@ def make_train_step(cfg: DvDConfig, sched: DiffusionSchedule,
     ``rollout_noise`` (B, S, S, 2) pin the first three.  ``spans(name)``,
     when given, is a context manager timing the stages ("rollout",
     "loss_backward", "optimizer_ema")."""
-    if cfg.model.quantize != "none":
-        raise ValueError(f"model.quantize={cfg.model.quantize!r} cannot be "
-                         "trained through; set quantize='none'")
+    check_trainable(cfg)
     span = spans or (lambda name: contextlib.nullcontext())
     ema_rates = cfg.train.ema_rates
     s = cfg.model.image_size

@@ -171,6 +171,8 @@ def test_cli_eval_dataset_writes_the_reference_layout(image_dir, tmp_path,
 
 
 def test_cli_corruption_raises():
-    with pytest.raises(NotImplementedError, match="item 19"):
-        run_sampling.main(["--eval_dataset", "x", "--corruption", "all",
+    """The sweep is ported (tests/test_torch_corruptions.py); an unknown
+    corruption id raises before any pipeline is built."""
+    with pytest.raises(SystemExit, match="valid"):
+        run_sampling.main(["--eval_dataset", "x", "--corruption", "rain",
                            "--device", "cpu"])

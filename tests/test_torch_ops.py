@@ -255,20 +255,34 @@ def test_nvcc_command_targets_sm90a(tmp_path):
     assert len(build.source_hash()) == 16
 
 
+# modules the walk below must reach: the int8, corruption and scoring
+# slice among them
+PORT_MODULES = ("ops.quant", "data.corruptions", "native",
+                "evaluation.metrics", "evaluation.calibrate",
+                "evaluation.visualize", "cli.evaluate", "cli.benchmark",
+                "cli.run_sampling")
+
+
 def test_port_imports_no_jax_flax_pil():
     """``import dvd_tpu_torch`` and ``chip_smoke`` (and every module of the
     port) load neither the JAX package ``dvd_tpu`` (not even a
-    pure-Python module of it), JAX, flax, msgpack, ml_dtypes nor PIL."""
+    pure-Python module of it), JAX, flax, msgpack, ml_dtypes, PIL nor cv2
+    (the card's machine has no PIL or cv2)."""
     code = (
         "import sys\n"
         "import pkgutil\n"
         "import dvd_tpu_torch, chip_smoke\n"
+        "seen = set()\n"
         "for m in pkgutil.walk_packages(dvd_tpu_torch.__path__, "
         "'dvd_tpu_torch.'):\n"
         "    __import__(m.name)\n"
+        "    seen.add(m.name)\n"
+        f"want = {{'dvd_tpu_torch.' + m for m in {PORT_MODULES!r}}}\n"
+        "missing = want - seen\n"
+        "assert not missing, missing\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('dvd_tpu', 'jax', 'jaxlib', 'flax', 'msgpack', 'ml_dtypes', "
-        "'PIL'))\n"
+        "'PIL', 'cv2'))\n"
         "assert not bad, bad\n"
         "print('clean')\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))

@@ -130,7 +130,7 @@ def test_unwarp_fixed_any_size():
 
 
 @pytest.mark.parametrize("override", [
-    {"model": {"quantize": "int8"}}, {"model": {"use_init_flow": True}},
+    {"model": {"serve_cond_chunk": 2}}, {"model": {"use_init_flow": True}},
     {"model": {"train_VGG": False}}, {"model": {"train_mode": "stage_1"}},
     {"model": {"separate_cross_attn": "seq"}}])
 def test_unported_flags_raise(override):
