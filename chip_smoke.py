@@ -9,15 +9,19 @@ exits non-zero -- nothing is caught):
 1. env      the card's name and power limit, torch/CUDA versions, the TF32
             settings; builds the kernels from ``dvd_tpu_torch/csrc`` for
             sm_90a and prints nvcc's ``-Xptxas -v`` report (no instance
-            of the two wgmma kernels, K1's and K2's, may spill), each
-            kernel's dynamic shared memory (K2 bf16: its launch plan at one
-            main-path shape per instance; K3: its channels and points per
-            thread at each main-path shape) and the HGMMA count of the
-            library's SASS (every wgmma instance must have some).
+            of the four tensor-core kernels, K1's and K2's in bf16 and in
+            f32, may spill), each kernel's dynamic shared memory (K2: its
+            launch plan at one main-path shape per instance; K3: its
+            channels and points per thread at each main-path shape) and
+            the HGMMA count of the library's SASS (every instance of the
+            four must have some).
 2. kernels  each hand-written kernel (K1-K5) against its plain PyTorch twin
             on the card at the serving and training paths' shapes, f32 and
-            bf16 (K1 and K2: f32 must take the CUDA-core kernel, bf16 the
-            wgmma one; K1 a ragged bf16 case and DiT-XL's head dim 72,
+            bf16 (K1 and K2: f32 must take the split-product kernel, bf16
+            the wgmma one; at the f32 record cases the kernel's and the
+            twin's max error against float64, the kernel's within 4x the
+            twin's or 2^-20 of max|ref|; K1 a ragged case and DiT-XL's
+            head dim 72,
             zero-padded to 128; K2 bf16 at every shape class of the
             serving and training paths, batches 4 and 10; K3 through both
             entries at its six main-path shapes, the augmentation's warp
@@ -69,6 +73,12 @@ exits non-zero -- nothing is caught):
             ms per stage; one
             run under torch.profiler for device time by kernel and the
             device's busy share.
+4c. shipped32  the shipped config served at ``compute_dtype=float32``
+            (batch 4, 512^2): launches as phase 4's, every K1 and K2
+            launch on the f32 route; K2 at each of the run's shape classes
+            against its twin and timed from CUDA graphs beside f32
+            ``conv2d`` (TF32 off); imgs/s, ms per stage and one profiled
+            run (K1 and K2 device time, the device's busy share).
 4b. shipped_int8  the shipped config with ``quantize="int8"`` on phase 4's
             pages, weights and x_T: launches and routes as phase 4's, the
             int8 products counted, the int8 layers' weights f32, the flow's
@@ -180,9 +190,16 @@ TOL = {
 }
 
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense): the
-# bound of a kernel is max(bytes / rate, operations / peak of their type)
+# bound of a kernel is max(bytes / rate, operations / peak of their type).
+# f32: the f32-accurate tensor-core rate, six bf16 products per f32 product
+# (989 / 6 = 165 TFLOP/s), which the f32 kernels run at; the CUDA cores'
+# 67 TFLOP/s, where cuDNN's and SDPA's f32 run, is the slower route
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 989e12 / 6}
+# the f32 kernels against float64 at their record cases: max error at most
+# F64_FACTOR x the f32 twin's, or F64_FLOOR x max|ref|
+F64_FACTOR = 4
+F64_FLOOR = 2.0 ** -20
 
 # the case whose time goes into the per-kernel JSON record: the serving
 # path's heaviest shape for each kernel, in the shipped dtype
@@ -197,15 +214,24 @@ RECORD_CASE = {
     "gather2d": "(2048, 2048) f32 at (2048, 2048) int32 near-identity",
 }
 
+# the f32 kernels' aims in ms at their timed cases: (low, high), high None
+# for "below the library call"
+F32_AIMS = {
+    ("attention_f32", "(8, 6, 1024, 256) scale 0.0625 float32"): (0.6, 1.0),
+    ("attention_f32", "(8, 6, 1024, 64) scale 0.125 float32"): (0.0, None),
+    ("attention_f32", "(8, 16, 1024, 72) scale 0.117851 float32"): (0.0, None),
+    ("conv3x3_f32", "256->256 @128^2 d1 b4 float32"): (0.8, 1.4),
+}
+
 KERNELS = {
     # name -> (source, replaced TPU kernel, the run whose launches count)
     "attention": ("dvd_tpu_torch/csrc/attention_wgmma.cu",
                   "dvd_tpu/ops/pallas/attention.py:49", "train"),
-    "attention_f32": ("dvd_tpu_torch/csrc/attention.cu",
+    "attention_f32": ("dvd_tpu_torch/csrc/attention_f32x6.cu",
                       "dvd_tpu/ops/pallas/attention.py:49", "train32"),
     "conv3x3": ("dvd_tpu_torch/csrc/conv3x3_wgmma.cu",
                 "dvd_tpu/ops/pallas/planar_conv.py:247", "train"),
-    "conv3x3_f32": ("dvd_tpu_torch/csrc/conv3x3.cu",
+    "conv3x3_f32": ("dvd_tpu_torch/csrc/conv3x3_f32x6.cu",
                     "dvd_tpu/ops/pallas/planar_conv.py:247", "train32"),
     "gather_bilinear": ("dvd_tpu_torch/csrc/grid_sample.cu",
                         "dvd_tpu/ops/pallas/grid_sample.py:122", "train"),
@@ -373,14 +399,19 @@ def phase_env(state):
         if "warning" in line.lower():
             log(f"[env] nvcc: {line.strip()}")
     # the tensor-core kernels: every instance must run without spills and
-    # have HGMMA in its SASS (K1: 5 head dims; K2: 4 widths x 3 chunk
-    # sizes, and 256-pixel blocks at n128 x 2 chunk sizes)
-    wgmma_kernels = {"attention_wgmma_kernel": 5, "conv3x3_wgmma_kernel": 14}
+    # have HGMMA in its SASS (K1: 5 head dims in each dtype; K2 bf16: 4
+    # widths x 3 chunk sizes, and 256-pixel blocks at n128 x 2 chunk sizes;
+    # K2 f32: 3 widths x 2 chunk sizes, and 256-pixel blocks at n64, CC 16)
+    wgmma_kernels = {"attention_wgmma_kernel": 5, "conv3x3_wgmma_kernel": 14,
+                     "attention_f32x6_kernel": 5, "conv3x3_f32x6_kernel": 7}
+    spilled = []
     for entry, regs, spills in ptxas_report(kl.build_log):
         log(f"[env] ptxas -v {entry}: {regs}; {spills}")
         if entry.split("<")[0] in wgmma_kernels and any(
                 int(n) for n in re.findall(r"(\d+) bytes spill", spills)):
-            raise AssertionError(f"{entry} spills: {spills}")
+            spilled.append(entry)
+    if spilled:
+        raise AssertionError(f"tensor-core kernels spill: {spilled}")
     hgmma = sass_hgmma(kl.path)
     if hgmma is None:
         log("[env] HGMMA in the library's SASS: not counted (the toolkit has "
@@ -397,15 +428,14 @@ def phase_env(state):
     from dvd_tpu_torch.ops.kernels.attention import HEAD_DIMS
     from dvd_tpu_torch.ops.kernels.conv3x3 import wgmma_plan
     kib = lambda n: f"{n / 1024:.1f} KiB"
-    log("[env] dynamic shared memory per block: attention_fwd_kernel " + ", ".join(
-        f"Dh {dh} {kib(kl.lib.dvd_attention_smem_bytes(dh))}" for dh in HEAD_DIMS))
+    log("[env] dynamic shared memory per block: attention_f32x6_kernel " + ", ".join(
+        f"Dh {dh} {kib(kl.lib.dvd_attention_f32x6_smem_bytes(dh))}"
+        for dh in HEAD_DIMS))
     log("[env] dynamic shared memory per block: attention_wgmma_kernel "
         + ", ".join(f"Dh {dh} {kib(kl.lib.dvd_attention_wgmma_smem_bytes(dh))}"
                     for dh in HEAD_DIMS))
-    log("[env] dynamic shared memory per block: conv3x3_kernel (f32) " + ", ".join(
-        f"<{cot}> d{d} {kib(kl.lib.dvd_conv3x3_smem_bytes(cot, d))}"
-        for cot in (16, 32) for d in (1, 2, 4, 8))
-        + "; gather_bilinear_kernel 0; gather_bilinear_grad_kernel 0; "
+    log("[env] dynamic shared memory per block: gather_bilinear_kernel 0; "
+        "gather_bilinear_grad_kernel 0; "
         "unwarp_kernel S^2 x 8 bytes (32.0 KiB at the latent's S = 64); "
         "gather2d_kernel 0")
     # K3's plan (channels and points per thread) at each of its main-path
@@ -426,11 +456,22 @@ def phase_env(state):
                              (16, 128, 288, 1), (64, 1, 288, 1), (64, 16, 288, 1),
                              (64, 64, 512, 1), (1024, 512, 36, 1),
                              (256, 256, 128, 1)):
-        p = wgmma_plan(4, cin, cout, hw, hw, d)
-        log(f"[env] conv3x3_wgmma_kernel<{p['bn']},{p['cc']},{p['mt']}> at "
-            f"{cin}->{cout} @{hw}^2 d{d} b4: tile {p['th']}x{p['tw']}, copies "
-            f"of {p['v']} elements, {kib(p['smem'])} dynamic shared memory, "
-            f"{p['blocks']} blocks")
+        _log_plan("conv3x3_wgmma_kernel", wgmma_plan(4, cin, cout, hw, hw, d),
+                  cin, cout, hw, d)
+    # the f32 kernel's, likewise
+    for cin, cout, hw, d in ((4, 1, 288, 1), (4, 16, 288, 1), (4, 64, 512, 1),
+                             (64, 1, 288, 1), (64, 16, 288, 1), (16, 16, 9, 8),
+                             (1024, 512, 36, 1), (256, 256, 128, 1)):
+        _log_plan("conv3x3_f32x6_kernel",
+                  wgmma_plan(4, cin, cout, hw, hw, d, torch.float32),
+                  cin, cout, hw, d)
+
+
+def _log_plan(kernel, p, cin, cout, hw, d):
+    log(f"[env] {kernel}<{p['bn']},{p['cc']},{p['mt']}> at {cin}->{cout} "
+        f"@{hw}^2 d{d} b4: tile {p['th']}x{p['tw']}, copies of {p['v']} "
+        f"elements, {p['smem'] / 1024:.1f} KiB dynamic shared memory, "
+        f"{p['blocks']} blocks")
 
 
 # ---------------------------------------------------------------- phase 2
@@ -463,6 +504,20 @@ def _record(times, name, case, fn, plain, library, nbytes, flops, dtype):
         library_ms=cuda_time_ms(library) if library else None,
         bound_ms=max(bound_bytes, bound_ops),
         bound_by="bytes" if bound_bytes >= bound_ops else "operations")
+
+
+def _vs_f64(case, got, twin, ref64, enforce: bool) -> None:
+    """The f32 kernel's and its f32 twin's max error against a float64
+    computation of the same inputs; where ``enforce``, the kernel's must be
+    within F64_FACTOR x the twin's or F64_FLOOR x max|ref|."""
+    err, tw = ((a.double() - ref64).abs().max().item() for a in (got, twin))
+    bar = max(F64_FACTOR * tw, F64_FLOOR * ref64.abs().max().item())
+    ok = math.isfinite(err) and err <= bar
+    log(f"  {case} vs float64: kernel {err:.3e}, twin {tw:.3e} ({err / max(tw, 1e-30):.2f}x; "
+        f"bar {bar:.3e}{'' if enforce else ', not enforced'}) "
+        f"{'ok' if ok else 'FAIL' if enforce else 'above'}")
+    if enforce and not ok:
+        raise AssertionError(f"{case}: {err:.3e} from float64 above {bar:.3e}")
 
 
 def _nbytes(*tensors) -> int:
@@ -651,7 +706,8 @@ def phase_kernels(state):
     bf16 = torch.bfloat16
     with torch.inference_mode():
         log("[kernels] K1 attention (B, H, T, Dh), strided split_heads views: "
-            "f32 on the CUDA cores, bf16 through wgmma")
+            "f32 through six bf16 products over a three-way split, bf16 "
+            "through wgmma")
         # K1's aims: bf16 within 3x of scaled_dot_product_attention at Dh 64,
         # 2x at Dh 256 (reported, not enforced: a time is not a check)
         # Dh 72 (DiT-XL/2: 16 heads of 72) has no instance: the wrapper
@@ -662,7 +718,8 @@ def phase_kernels(state):
                 ((8, 6, 1024, 256), 1 / 16, (torch.float32, bf16), 2.0),
                 ((8, 16, 1024, 72), 1 / math.sqrt(72), (torch.float32, bf16),
                  0.0),
-                ((8, 6, 1000, 256), 1 / 16, (bf16,), None)):  # ragged
+                ((8, 6, 1000, 256), 1 / 16, (torch.float32, bf16),
+                 None)):  # ragged
             for dt in dts:
                 q, k, v = _qkv(*shape, dt, gen, dev)
                 before = routes("attention")
@@ -678,6 +735,10 @@ def phase_kernels(state):
                                                    want, bar))
                 if route != {"wgmma": int(dt == bf16), "f32": int(dt != bf16)}:
                     raise AssertionError(f"K1 {case} took the routes {route}")
+                if dt == torch.float32:
+                    _vs_f64(case, got, want, attention_ref(
+                        q.double(), k.double(), v.double(), scale),
+                        case == RECORD_CASE["attention_f32"])
                 if aim is not None:  # timed in both dtypes; the aim is bf16's
                     if dt == bf16 and aim:
                         aims[case] = aim
@@ -689,8 +750,9 @@ def phase_kernels(state):
                                 q, k, v, scale=scale),
                             _nbytes(q, k, v, got), 4 * b * h * tq * tq * dh, dt)
 
-        log("[kernels] K2 conv3x3 (B, Cin, H, W) -> Cout, dilation: f32 on "
-            "the CUDA cores, bf16 through wgmma")
+        log("[kernels] K2 conv3x3 (B, Cin, H, W) -> Cout, dilation: f32 "
+            "through six bf16 products over a three-way split, bf16 through "
+            "wgmma")
         # the f32 kernel at the serving batch and the frozen aux nets'
         # shapes at the training batch
         for b, cin, cout, hw, d in ((4, 3, 16, 288, 1), (4, 64, 16, 9, 8),
@@ -703,11 +765,14 @@ def phase_kernels(state):
             got = conv3x3(x, w, s, bi, d, True)
             route = {r: n - before[r] for r, n in routes("conv3x3").items()}
             name = f"{cin}->{cout} @{hw}^2 d{d} b{b} float32"
+            want = conv3x3_ref(x, w, s, bi, d, True)
             errs["conv3x3_f32"] = max(errs["conv3x3_f32"], compare(
-                f"{name} {route}", got, conv3x3_ref(x, w, s, bi, d, True),
-                TOL["conv3x3_f32_rel"], rel=True))
+                f"{name} {route}", got, want, TOL["conv3x3_f32_rel"], rel=True))
             if route != {"wgmma": 0, "f32": 1}:
                 raise AssertionError(f"K2 {name} took the routes {route}")
+            _vs_f64(name, got, want, conv3x3_ref(
+                x.double(), w.double(), s.double(), bi.double(), d, True),
+                name == RECORD_CASE["conv3x3_f32"])
             if name == RECORD_CASE["conv3x3_f32"]:   # f32 conv2d, TF32 off
                 _record(times, "conv3x3_f32", name,
                         lambda: conv3x3(x, w, s, bi, d, True),
@@ -921,6 +986,15 @@ def phase_kernels(state):
     log(f"[kernels] K2 {RECORD_CASE['conv3x3']}: {x:.2f}x conv2d, "
         f"{r['bound_ms'] / r['ms']:.1%} of its bound (aim <= 2x: "
         f"{'met' if x <= 2 else 'NOT met'})")
+    # the f32 kernels' aims (reported, not enforced): ms within a range, or
+    # below the library call
+    for (name, case), (lo, hi) in F32_AIMS.items():
+        r = times[(name, case)]
+        hi = r["library_ms"] if hi is None else hi
+        log(f"[kernels] {name} {case}: {r['ms']:.4f} ms, {r['ms'] / r['library_ms']:.2f}x "
+            f"the library call, {r['bound_ms'] / r['ms']:.1%} of its bound at "
+            f"165 TFLOP/s (aim {lo:g}-{hi:.4g} ms: "
+            f"{'met' if lo <= r['ms'] <= hi else 'NOT met'})")
     state["kernel_errs"] = errs
     state["kernel_times"] = times
 
@@ -964,7 +1038,8 @@ def _kernel_fns():
             "gather2d": gather2d}
 
 
-# the kernels with two routes: bf16 through wgmma, f32 on the CUDA cores
+# the kernels with two routes: bf16 through wgmma, f32 through the split
+# products (both on the tensor cores)
 ROUTED = ("attention", "conv3x3")
 
 
@@ -1010,12 +1085,12 @@ def check_gather_route(what: str) -> dict:
 
 def check_conv_route(what: str, dtype) -> dict:
     """Every K2 launch since the last reset took ``dtype``'s route: bf16
-    the tensor cores, f32 the CUDA cores."""
+    the wgmma kernel, f32 the split-product one."""
     n, r = read_launches()["conv3x3"], routes("conv3x3")
     want = {"wgmma": n, "f32": 0} if dtype == torch.bfloat16 else \
         {"wgmma": 0, "f32": n}
     log(f"[{what}] K2 by route {r} of {n} launches ({str(dtype)[6:]}: "
-        f"{'wgmma' if dtype == torch.bfloat16 else 'the CUDA cores'})")
+        f"{'wgmma' if dtype == torch.bfloat16 else 'split products'})")
     if r != want or n <= 0:
         raise AssertionError(f"{what}: K2 routes {r}, expected {want}")
     return r
@@ -1407,27 +1482,36 @@ def _tf32_default_run(pipe, src, flow_off):
             off[2], TOL["flow_twin"])
 
 
-def _time_conv_classes(shapes: Counter, label: str) -> None:
-    """Every K2 shape class of one serving run, on fresh bf16 inputs: the
-    kernel against its twin (the phase-2 bar), then its time beside
-    ``conv2d``'s and its bound, and the sums over the run's launches."""
+def _time_conv_classes(shapes: Counter, label: str, tag: str = "shipped",
+                       dtype=torch.bfloat16) -> dict:
+    """Every K2 shape class of one serving run, on fresh inputs in
+    ``dtype``: the kernel against its twin (the phase-2 bar), then its
+    time beside ``conv2d``'s (f32: TF32 off) and its bound, and the sums
+    over the run's launches."""
     import torch.nn.functional as F
 
     from dvd_tpu_torch.ops.kernels.conv3x3 import (conv3x3, conv3x3_ref,
-                                                   k_major_weights)
+                                                   k_major_weights,
+                                                   k_major_weights_split)
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
-    log(f"[shipped] K2 by shape class, bf16, mean of 20 calls in a CUDA "
-        f"graph ({label}): kernel ms, conv2d ms, bound ms (by), launches per "
-        f"serving run; then the kernel's ms per call back to back from "
-        f"Python (the host's launch cost included)")
+    f32 = dtype == torch.float32
+    log(f"[{tag}] K2 by shape class, {str(dtype)[6:]}, mean of 20 calls in a "
+        f"CUDA graph ({label}): kernel ms, conv2d ms, bound ms (by), launches "
+        f"per serving run; then the kernel's ms per call back to back from "
+        f"Python (the host's launch cost included) and the plain twin's ms "
+        f"in a CUDA graph")
     total = Counter()
     for (b, cin, cout, h, w, d), n in sorted(shapes.items()):
-        x, wt, s, bi = _conv_case(b, cin, cout, (h, w), torch.bfloat16, gen, "cuda")
-        wk, bl = k_major_weights(wt), bi.bfloat16()
+        x, wt, s, bi = _conv_case(b, cin, cout, (h, w), dtype, gen, "cuda")
+        # f32: the split weights, once per weight set as the fold cache
+        # keeps them
+        wk = (k_major_weights_split if f32 else k_major_weights)(wt)
+        bl = bi.to(dtype)
         got = conv3x3(x, wt, s, bi, d, True, wk)
         want = conv3x3_ref(x, wt, s, bi, d, True)
-        bar = TOL["bf16"] * max(1.0, want.float().abs().max().item())
+        ref = want.float().abs().max().item()
+        bar = TOL["conv3x3_f32_rel"] * ref if f32 else TOL["bf16"] * max(1.0, ref)
         err = (got.float() - want.float()).abs().max().item()
         if not err <= bar:
             raise AssertionError(f"K2 {cin}->{cout} @{h}x{w} d{d} b{b}: "
@@ -1435,24 +1519,29 @@ def _time_conv_classes(shapes: Counter, label: str) -> None:
         ms = cuda_graph_ms(lambda: conv3x3(x, wt, s, bi, d, True, wk))
         lib = cuda_graph_ms(lambda: F.conv2d(x, wt, bl, 1, d, d))
         eager = cuda_time_ms(lambda: conv3x3(x, wt, s, bi, d, True, wk))
+        plain = cuda_graph_ms(lambda: conv3x3_ref(x, wt, s, bi, d, True))
         by_bytes = _nbytes(x, wt, s, bi, got) / HBM_BYTES_PER_S * 1e3
-        by_ops = 18 * b * cin * cout * h * w / PEAK_FLOPS[torch.bfloat16] * 1e3
+        by_ops = 18 * b * cin * cout * h * w / PEAK_FLOPS[dtype] * 1e3
         bound = max(by_bytes, by_ops)
         total.update(kernel=n * ms, conv2d=n * lib, bound=n * bound,
-                     eager=n * eager)
+                     eager=n * eager, plain=n * plain)
         log(f"  {cin}->{cout} @{h}x{w} d{d} b{b}: {ms:.4f} {lib:.4f} "
             f"{bound:.3g} ({'bytes' if by_bytes >= by_ops else 'operations'}) "
-            f"x{n}; {eager:.4f}")
-    log(f"[shipped] K2 over one serving run's {sum(shapes.values())} launches, "
+            f"x{n}; {eager:.4f}; {plain:.4f}")
+    log(f"[{tag}] K2 over one serving run's {sum(shapes.values())} launches, "
         f"summed from the classes: kernel {total['kernel']:.3f} ms, conv2d "
         f"{total['conv2d']:.3f} ms ({total['kernel'] / total['conv2d']:.2f}x), "
         f"bound {total['bound']:.4f} ms; back to back from Python "
-        f"{total['eager']:.3f} ms ({label})")
+        f"{total['eager']:.3f} ms; plain twin {total['plain']:.3f} ms ({label})")
+    return dict(total)
 
 
-def _profile(pipe, src, gen, label, top=25):
+def _profile(pipe, src, gen, label, top=25,
+             need=("conv3x3_wgmma_kernel", "gather_bilinear_kernel",
+                   "unwarp_kernel")):
     """One warm main-path run under torch.profiler: device time by kernel
-    and the device's busy share of the wall time."""
+    and the device's busy share of the wall time; each kernel entry in
+    ``need`` must show device time."""
     from torch.profiler import ProfilerActivity, profile
 
     from dvd_tpu_torch.evaluation.pipeline import unwarp_fixed
@@ -1472,17 +1561,17 @@ def _profile(pipe, src, gen, label, top=25):
         log(f"[profile]   {us / 1e3:9.3f} ms {us / 1e3 / busy:6.1%} x{n:<5d} "
             f"{key[:110]}")
     shares = _kernel_shares(rows, busy, "run")
-    for entry in ("conv3x3_wgmma_kernel", "gather_bilinear_kernel",
-                  "unwarp_kernel"):
+    for entry in need:
         if shares[entry] <= 0:
-            raise AssertionError(f"the profiled bf16 serving run shows no "
+            raise AssertionError(f"the profiled serving run shows no "
                                  f"{entry} time")
     return rows, busy, wall
 
 
 # the profiler's kernel names of K1-K4 (a template's name ends in "<")
-KERNEL_ENTRIES = (("K1", "attention_wgmma_kernel"), ("K1", "attention_fwd_kernel"),
-                  ("K2", "conv3x3_wgmma_kernel"), ("K2", "conv3x3_kernel"),
+F32_ENTRIES = {"K1": "attention_f32x6_kernel", "K2": "conv3x3_f32x6_kernel"}
+KERNEL_ENTRIES = (("K1", "attention_wgmma_kernel"), ("K1", F32_ENTRIES["K1"]),
+                  ("K2", "conv3x3_wgmma_kernel"), ("K2", F32_ENTRIES["K2"]),
                   ("K3", "gather_bilinear_kernel"), ("K3", "unwarp_kernel"),
                   ("K4", "gather_bilinear_grad_kernel"))
 
@@ -2560,6 +2649,74 @@ def phase_shipped_int8(state):
         raise AssertionError("the profiled int8 run shows no int8 GEMM time")
 
 
+def phase_shipped32(state):
+    """The shipped config served at ``compute_dtype=float32``, batch 4,
+    512^2 (a reading for the f32 configuration's users): launches and
+    routes, outputs, K2 by shape class against f32 ``conv2d``, imgs/s, ms
+    by stage and one profiled run."""
+    from dvd_tpu_torch.config import default_config
+    from dvd_tpu_torch.evaluation.pipeline import DewarpPipeline, unwarp_fixed
+
+    cfg = default_config().replace(model={"compute_dtype": "float32"})
+    m, d = cfg.model, cfg.diffusion
+    state.setdefault("label", card_label())   # run without phase 1
+    batch, label = cfg.data.eval_device_batch, state["label"]
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pipe = DewarpPipeline.create(
+        cfg, "cuda", generator=torch.Generator().manual_seed(SEED + 3))
+    gen = torch.Generator().manual_seed(SEED + 4)
+    src = _page(batch, m.source_size, m.source_size, gen).cuda()
+    cuda_gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    log(f"[shipped32] {m.dit_variant} {m.compute_dtype} batch {batch}, "
+        f"{m.source_size}^2, {d.diffusion_steps} DDIM steps x {d.n_batch} "
+        f"hypotheses ({label})")
+    torch.cuda.synchronize()
+    reset_launches()
+    with conv_shape_counter(Counter()) as shapes, torch.inference_mode():
+        flow = pipe.dewarp_flow(src, generator=cuda_gen)
+        out = unwarp_fixed(src, flow)
+    torch.cuda.synchronize()
+    counts, k1 = read_launches(), routes("attention")
+    check_conv_route("shipped32", torch.float32)
+    check_gather_route("shipped32")
+    log(f"[shipped32] kernel launches in one main-path run: {counts}; K1 by "
+        f"route {k1}")
+    if counts != SERVE_LAUNCHES or \
+            k1 != {"wgmma": 0, "f32": SERVE_LAUNCHES["attention"]}:
+        raise AssertionError(f"shipped32 launches {counts}, K1 routes {k1}")
+    if sum(shapes.values()) != SERVE_LAUNCHES["conv3x3"]:
+        raise AssertionError(f"{sum(shapes.values())} K2 calls counted")
+    if flow.shape != (batch, m.image_size, m.image_size, 2) \
+            or out.shape != src.shape or not (
+                torch.isfinite(flow).all() and torch.isfinite(out).all()
+                and flow.abs().max() <= 1):
+        raise AssertionError("f32 outputs malformed, not finite or the flow "
+                             "outside [-1, 1]")
+    log(f"[shipped32] flow |max| {flow.abs().max().item():.4f}; unwarped "
+        f"image range [{out.min().item():.3f}, {out.max().item():.3f}]")
+    conv = _time_conv_classes(shapes, label, "shipped32", torch.float32)
+
+    iters = 3
+    stage = _warm_stages(pipe, src, cuda_gen, iters)
+    total = sum(stage.values())
+    log(f"[shipped32] {batch / total:.2f} imgs/s at batch {batch} "
+        f"({total * 1e3:.1f} ms per batch, mean of {iters} warm runs; "
+        f"{label})")
+    for k, v in stage.items():
+        log(f"[shipped32]   {k}: {v * 1e3:.2f} ms per batch ({label})")
+    rows, busy, wall = _profile(pipe, src, cuda_gen, label,
+                                need=("unwarp_kernel",))
+    for name, entry in F32_ENTRIES.items():
+        ms = sum(r[1] for r in rows if entry + "<" in r[0]) / 1e3
+        log(f"[shipped32] {name} f32 device time in the profiled run: "
+            f"{ms:.3f} ms ({label})")
+        if ms <= 0:
+            raise AssertionError(f"the profiled f32 run shows no {name} time")
+    state["shipped32"] = dict(imgs_per_sec=batch / total, stage=stage,
+                              busy_ms=busy, conv_classes=conv)
+
+
 # the corruptions the card's machine can run (it has no cv2)
 def _corruptions_without_cv2():
     from dvd_tpu_torch.data.corruptions import CORRUPTIONS, NEEDS_CV2
@@ -2685,8 +2842,9 @@ def phase_score(state):
 
 # ---------------------------------------------------------------- main
 PHASES = (phase_env, phase_kernels, phase_int8, phase_slice32,
-          phase_slice_int8, phase_shipped, phase_shipped_int8, phase_train32,
-          phase_train, phase_probe, phase_dataset, phase_corrupt, phase_score)
+          phase_slice_int8, phase_shipped, phase_shipped_int8, phase_shipped32,
+          phase_train32, phase_train, phase_probe, phase_dataset,
+          phase_corrupt, phase_score)
 
 
 def main(argv=None) -> int:

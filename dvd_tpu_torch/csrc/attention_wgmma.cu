@@ -2,8 +2,8 @@
 // on Hopper's tensor cores (wgmma).
 //
 // Replaces the TPU kernel dvd_tpu/ops/pallas/attention.py:fused_attention
-// (_kernel) for bf16 inputs; float32 stays on the CUDA-core kernel in
-// attention.cu.  Contract: q (B, H, Tq, Dh), k and v (B, H, Tk, Dh), each
+// (_kernel) for bf16 inputs; float32 goes to the split-product kernel in
+// attention_f32x6.cu.  Contract: q (B, H, Tq, Dh), k and v (B, H, Tk, Dh), each
 // with its own (b, h, t) strides (multiples of 8 elements, base pointers
 // 16-byte aligned) and a unit stride on Dh, so the split_heads views of a
 // (B, T, H*Dh) projection are read in place.  Logits and softmax in f32, p
@@ -47,7 +47,7 @@
 // - Rounding: p is cast to bf16 relative to the running max and normalised
 //   by the f32 row sum at the end; the TPU kernel casts the normalised p.
 //   The two differ by bf16 rounding of p (relative 2^-9 per term).
-#include "hopper.cuh"
+#include "attention.cuh"
 
 namespace {
 
@@ -59,30 +59,6 @@ constexpr int kBM = 64;                  // query rows per warpgroup
 constexpr int kBQ = kBM * kWarpgroups;   // query rows per block
 constexpr int kBK = 64;                  // K/V rows per tile
 
-struct Strides {
-  long long b, h, t;
-};
-
-// Shared-memory layout of a bf16 tile of R rows x DH columns: DH / kCols
-// column blocks, each R rows of kRowBytes, 16-byte chunks swizzled within
-// each 8-row atom as the wgmma descriptors' swizzle mode says.
-template <int DH>
-struct Layout {
-  static_assert(DH % 64 == 0 || DH == 16, "64-column blocks, or one of 16");
-  static constexpr int kRowBytes = DH >= 64 ? 128 : 32;
-  static constexpr int kCols = kRowBytes / 2;  // columns per block
-  static constexpr int kChunks = kRowBytes / 16;
-  static constexpr uint64_t kMode = DH >= 64 ? 1 : 3;  // 128- or 32-byte swizzle
-  static constexpr uint32_t kAtom = 8 * kRowBytes;  // stride of 8-row groups
-
-  // byte offset of chunk c (8 columns) of row r in a tile of R rows
-  template <int R>
-  static __device__ __forceinline__ uint32_t offset(int r, int c) {
-    const uint32_t o = r * kRowBytes + (c % kChunks) * 16;
-    return (c / kChunks) * (R * kRowBytes) + (o ^ (((o >> 7) & (kChunks - 1)) << 4));
-  }
-};
-
 template <int DH>
 __host__ __device__ constexpr int stages() { return DH >= 256 ? 2 : 3; }
 
@@ -91,8 +67,6 @@ constexpr int smem_bytes() {
   // Q, the ring, and 1 KB to align the base to a 1024-byte swizzle atom
   return kBQ * DH * 2 + stages<DH>() * 2 * kBK * DH * 2 + 1024;
 }
-
-#define DVD_FOR_EACH_DH(X) X(16) X(64) X(128) X(192) X(256)
 
 #define DVD_D8(i)                                                              \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), \
@@ -110,37 +84,7 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a, uint64_
       : "l"(a), "l"(b), "r"(1));
 }
 
-// d (64 x 64, f32) += A (64 x 16, bf16 registers) B (16 x 64, smem, MN-major)
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t* a,
-                                             uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : DVD_D8(0), DVD_D8(8), DVD_D8(16), DVD_D8(24)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-// d (64 x 16, f32) += A (64 x 16, bf16 registers) B (16 x 16, smem, MN-major)
-__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8], const uint32_t* a,
-                                             uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-      : DVD_D8(0)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
 #undef DVD_D8
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // copy rows [t0, t0 + R) of a (T, DH) bf16 matrix with row stride st into a
 // swizzled tile; rows at or past T are zero-filled

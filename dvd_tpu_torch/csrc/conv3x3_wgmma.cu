@@ -3,8 +3,8 @@
 // an implicit GEMM on Hopper's tensor cores (wgmma).
 //
 // Replaces the TPU kernel dvd_tpu/ops/pallas/planar_conv.py:conv3x3_planar
-// (_conv_kernel) for bf16 inputs; float32 stays on the CUDA-core kernel in
-// conv3x3.cu.  Inputs: x (B, Cin, H, W) bf16 with a 16-byte aligned base;
+// (_conv_kernel) for bf16 inputs; float32 goes to the split-product kernel
+// in conv3x3_f32x6.cu.  Inputs: x (B, Cin, H, W) bf16 with a 16-byte aligned base;
 // the weights as the K-major copy that ops/kernels/conv3x3.py:k_major_weights
 // builds from w (Cout, Cin, 3, 3): (Cout, nchunks * KC) bf16, where Cin is
 // cut into chunks of CC channels (8, 16 or 32, by Cin) and a chunk's KC
@@ -73,177 +73,22 @@
 //   straight to the NCHW planes as bf16, 8 neighbouring pixels of one
 //   channel (16 bytes) per 8 lanes.  Not staged through shared memory:
 //   the output is 1/(9 Cin) of the operations' bytes at the wide layers.
-#include "hopper.cuh"
+// The planner, the arguments, the pixel and position tables, the wgmma
+// wrappers and the epilogue are conv3x3.cuh's, shared with
+// conv3x3_f32x6.cu; this file holds the bf16 geometry and the kernel body.
+#include "conv3x3.cuh"
 
 namespace {
 
 using namespace dvd;
+using namespace dvd::conv;
 
-constexpr int kThreads = 256;  // two consumer warpgroups
-constexpr int kMinBlocks = 2 * 132;  // two waves on the H100's SMs
-constexpr int kMaxDilation = 32;
-constexpr long long kMaxSmem = 232448;  // the 227 KB a block may use
-constexpr int kNotTaken = -1;  // the entry's code for an input it refuses
-
-// input channels per chunk, by Cin (ops/kernels/conv3x3.py:chunk_channels)
-int chunk_channels(int cin) { return cin <= 8 ? 8 : cin <= 16 ? 16 : 32; }
-
-// output channels per block, by Cout
-int block_n(int cout) { return cout <= 8 ? 8 : cout <= 16 ? 16 : cout <= 64 ? 64 : 128; }
-
-// K columns per chunk: 9 taps x cc, padded to wgmma's k step of 16
-__host__ __device__ constexpr int chunk_k(int cc) { return (9 * cc + 15) / 16 * 16; }
-
-// The launch's tiling and staging geometry, chosen on the host.
-struct Plan {
-  int th, tw, tiles_x, tiles;  // output tile TH x TW, tiles per row, in all
-  int v;                       // copy width in elements (8, 4, 2; 1: plain)
-  int sr, sc, scp, ps;         // staged rows, columns, row and plane pitch
-  int npos;                    // staged (row, v columns) positions: sr sc / v
-  int row_band, col_band;      // d >= TH (TW): three bands are staged
-  int pad;                     // columns staged left of the tile (>= d)
-  int rstep, cstep, cbase;     // tap (ky, kx) -> staged row ty + ky rstep,
-                               // column tx + cbase + kx cstep
-  int bn, cc, mt;              // BN, CC; m64 tiles per warpgroup
-  long long smem;
-};
-
-long long smem_bytes(int bn, int cc, int ps, int npos) {
-  // two slots of (B tile, A planes), the staged positions' table, and 128
-  // bytes to align the base
-  return 2LL * (bn * chunk_k(cc) * 2 + (long long)cc * ps * 2) + 8LL * npos + 128;
-}
-
-// The best tile for blocks of 128 * mt output pixels, or false where none
-// fits in shared memory.
-bool plan_tiles(int Cin, int Cout, int H, int W, int d, int mt, Plan& out) {
-  long long best = -1;
-  const int cc = chunk_channels(Cin), bm = 128 * mt;
-  for (int tw = 1; tw <= (W < 64 ? W : 64); ++tw) {
-    Plan q{};
-    q.cc = cc;
-    q.mt = mt;
-    q.tw = tw;
-    q.th = bm / tw < H ? bm / tw : H;
-    int v = 8;
-    while (v > 1 && (W % v || tw % v)) v /= 2;
-    q.col_band = d >= tw;
-    if (q.col_band)
-      while (v > 1 && d % v) v /= 2;
-    q.v = v;
-    q.row_band = d >= q.th;
-    q.rstep = q.row_band ? q.th : d;
-    q.sr = q.th + 2 * q.rstep;
-    q.pad = (d + v - 1) / v * v;
-    q.sc = q.col_band ? 3 * tw : tw + 2 * q.pad;
-    q.cstep = q.col_band ? tw : d;
-    q.cbase = q.col_band ? 0 : q.pad - d;
-    q.scp = (q.sc + 7) / 8 * 8;
-    q.ps = (q.sr * q.scp + 23) / 32 * 32 + 8;  // 8 mod 32, >= sr * scp
-    q.tiles_x = ceil_div(W, tw);
-    q.tiles = q.tiles_x * ceil_div(H, q.th);
-    q.npos = q.sr * (q.sc / v);
-    q.bn = block_n(Cout);
-    q.smem = smem_bytes(q.bn, cc, q.ps, q.npos);
-    if (q.smem > kMaxSmem && q.bn == 128) {
-      q.bn = 64;
-      q.smem = smem_bytes(q.bn, cc, q.ps, q.npos);
-    }
-    if (q.smem > kMaxSmem) continue;
-    // a tile's products against its staging; narrow copies cost more
-    const long long per_px = v >= 4 ? 1 : v == 2 ? 2 : 4;
-    const long long cost = (long long)q.tiles * (512 * mt + (long long)q.sr * q.sc * per_px);
-    if (best < 0 || cost < best) {
-      best = cost;
-      out = q;
-    }
-  }
-  return best >= 0;
-}
-
-// Blocks of 256 pixels (two m64 tiles per warpgroup) halve the weights
-// staged per output at BN 128 where the grid still fills two waves; else
-// 128 (at BN 64 the taller tile's halo and narrower copies cost more than
-// the weights they save).
-bool make_plan(int Cin, int Cout, int H, int W, int d, int B, Plan& out) {
-  if (!plan_tiles(Cin, Cout, H, W, d, 1, out)) return false;
-  Plan two;
-  if (out.bn == 128 && out.cc >= 16 && plan_tiles(Cin, Cout, H, W, d, 2, two) &&
-      two.bn == out.bn &&
-      (long long)two.tiles * ceil_div(Cout, two.bn) * B >= kMinBlocks)
-    out = two;
-  return true;
-}
-
-struct Args {
-  const __nv_bfloat16* x;
-  const __nv_bfloat16* wk;
-  const float* scale;
-  const float* bias;
-  __nv_bfloat16* out;
-  int Cin, Cout, H, W, d, relu, nch;
-  Plan p;
-};
-
-#define DVD_ACC4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
-#define DVD_ACC16(i) DVD_ACC4(i), DVD_ACC4(i + 4), DVD_ACC4(i + 8), DVD_ACC4(i + 12)
-#define DVD_A4 "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3])
-
-// d (64 x N, f32) += A (64 x 16, bf16 registers) B (16 x N, smem, K-major)
-__device__ __forceinline__ void wgmma_rs(float (&d)[4], const uint32_t* a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
-      : DVD_ACC4(0)
-      : DVD_A4, "l"(b), "r"(1));
-}
-__device__ __forceinline__ void wgmma_rs(float (&d)[8], const uint32_t* a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
-      : DVD_ACC4(0), DVD_ACC4(4)
-      : DVD_A4, "l"(b), "r"(1));
-}
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t* a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
-      : DVD_ACC16(0), DVD_ACC16(16)
-      : DVD_A4, "l"(b), "r"(1));
-}
-__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t* a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
-      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
-      "%58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
-      : DVD_ACC16(0), DVD_ACC16(16), DVD_ACC16(32), DVD_ACC16(48)
-      : DVD_A4, "l"(b), "r"(1));
-}
-
-#undef DVD_A4
-#undef DVD_ACC16
-#undef DVD_ACC4
-
-// global row of staged row sr (contiguous: from y0 - d; bands: TH rows at
-// y0 - d, y0, y0 + d), and likewise for columns
-__device__ __forceinline__ int staged_row(const Plan& p, int y0, int d, int sr) {
-  return p.row_band ? y0 + sr % p.th + (sr / p.th - 1) * d : y0 - d + sr;
-}
-__device__ __forceinline__ int staged_col(const Plan& p, int x0, int d, int sc) {
-  return p.col_band ? x0 + sc % p.tw + (sc / p.tw - 1) * d : x0 - p.pad + sc;
-}
+// BN 8-128, CC 8-32; past 227 KB a BN 128 plan falls back to 64 only
+constexpr Geometry kGeom{2, 1, 32, 128, 64, 8};
 
 template <int BN, int CC, int MT>
-__global__ void __launch_bounds__(kThreads, 1) conv3x3_wgmma_kernel(const Args a) {
+__global__ void __launch_bounds__(kThreads, 1)
+    conv3x3_wgmma_kernel(const Args<__nv_bfloat16> a) {
   constexpr int kK = chunk_k(CC), kSteps = kK / 16;
   constexpr int kPix = 2 * MT;  // pixels per thread
   constexpr uint32_t kBBytes = BN * kK * 2;
@@ -256,41 +101,17 @@ __global__ void __launch_bounds__(kThreads, 1) conv3x3_wgmma_kernel(const Args a
   const uint32_t abytes = CC * p.ps * 2;
   // slot s: B at base + s kBBytes; A at base + 2 kBBytes + s abytes
 
-  const int tid = threadIdx.x;
-  const int wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32, q = lane % 4;
+  const int tid = threadIdx.x, q = tid % 4;
   const int y0 = (blockIdx.x / p.tiles_x) * p.th, x0 = (blockIdx.x % p.tiles_x) * p.tw;
   const int co0 = blockIdx.y * BN;
   const long long hw = (long long)a.H * a.W;
   const __nv_bfloat16* xb = a.x + (long long)blockIdx.z * a.Cin * hw;
 
-  // this thread's pixels: rows lane/4 and lane/4 + 8 of its warp's 16 in
-  // each of its warpgroup's MT m64 tiles (pixel i: tile i / 2, row i % 2)
   int pix[kPix], oy[kPix], ox[kPix];
   bool ok[kPix];
-#pragma unroll
-  for (int i = 0; i < kPix; ++i) {
-    const int m = 128 * (i / 2) + 64 * wg + 16 * warp + lane / 4 + 8 * (i % 2);
-    int ty = m / p.tw, tx = m % p.tw;
-    ok[i] = ty < p.th && y0 + ty < a.H && x0 + tx < a.W;
-    if (ty >= p.th) ty = tx = 0;  // rows past the tile: computed, not stored
-    oy[i] = y0 + ty;
-    ox[i] = x0 + tx;
-    pix[i] = ty * p.scp + tx;
-  }
-
-  // the staged positions (row r, v columns from sc), once per block:
-  // (offset in the plane or -1 outside it, offset in a staged plane)
+  thread_pixels(p, y0, x0, a.H, a.W, pix, oy, ox, ok);
   int2* const tab = reinterpret_cast<int2*>(gbase + 2 * kBBytes + 2 * abytes);
-  {
-    const int per_row = p.sc / p.v;
-    for (int i = tid; i < p.npos; i += kThreads) {
-      const int r = i / per_row, sc = i % per_row * p.v;
-      const int gy = staged_row(p, y0, a.d, r), gx = staged_col(p, x0, a.d, sc);
-      // W, gx and the tile are multiples of v: a copy is all in or all out
-      const bool in = gy >= 0 && gy < a.H && gx >= 0 && gx < a.W;
-      tab[i] = make_int2(in ? gy * a.W + gx : -1, r * p.scp + sc);
-    }
-  }
+  table_positions(tab, p, y0, x0, a.d, a.H, a.W);
   // this thread's copies walk (channel, position) in steps of kThreads
   const int pos0 = tid % p.npos, ch0 = tid / p.npos;
   const int dpos = kThreads % p.npos, dch = kThreads / p.npos;
@@ -391,7 +212,7 @@ __global__ void __launch_bounds__(kThreads, 1) conv3x3_wgmma_kernel(const Args a
       wgmma_fence();
       const uint64_t bdesc = make_desc(sb + 2 * k * kCoreStride, kCoreStride, 128, 0);
 #pragma unroll
-      for (int t = 0; t < MT; ++t) wgmma_rs(acc[t], fr + 4 * t, bdesc);
+      for (int t = 0; t < MT; ++t) wgmma_rs(acc[t], fr + 4 * t, bdesc, 1);
       wgmma_commit();
       wgmma_wait<1>();  // the step before this one is done: its A is free
     }
@@ -400,43 +221,20 @@ __global__ void __launch_bounds__(kThreads, 1) conv3x3_wgmma_kernel(const Args a
     for (int t = 0; t < MT; ++t) fence_regs(acc[t]);
   }
 
-  // acc[t][e]: pixel 2t + (e / 2) % 2, channel co0 + 8 (e / 4) + 2q + e % 2
-  const long long out_b = (long long)blockIdx.z * a.Cout;
-#pragma unroll
-  for (int t = 0; t < MT; ++t)
-#pragma unroll
-    for (int e = 0; e < BN / 2; ++e) {
-      const int i = 2 * t + (e / 2) % 2;
-      const int co = co0 + 8 * (e / 4) + 2 * q + e % 2;
-      if (!ok[i] || co >= a.Cout) continue;
-      float y = fmaf(acc[t][e], a.scale[co], a.bias[co]);
-      if (a.relu) y = fmaxf(y, 0.f);
-      a.out[((out_b + co) * a.H + oy[i]) * a.W + ox[i]] = __float2bfloat16(y);
-    }
-}
-
-template <int BN, int CC, int MT>
-int launch(const Args& a, int B, cudaStream_t stream) {
-  auto kern = conv3x3_wgmma_kernel<BN, CC, MT>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)a.p.smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(a.p.tiles, dvd::ceil_div(a.Cout, BN), B);
-  kern<<<grid, kThreads, a.p.smem, stream>>>(a);
-  return (int)cudaGetLastError();
+  store_tile<BN, MT>(a, acc, co0, oy, ox, ok);
 }
 
 // instances: BN 8, 16, 64, 128 at every CC; 256-pixel blocks (MT 2) at
 // BN 128 with CC 16 and 32
 template <int BN, int CC>
-int dispatch_mt(const Args& a, int B, cudaStream_t s) {
+int dispatch_mt(const Args<__nv_bfloat16>& a, int B, cudaStream_t s) {
   if constexpr (BN == 128 && CC >= 16)
-    if (a.p.mt == 2) return launch<BN, CC, 2>(a, B, s);
-  return launch<BN, CC, 1>(a, B, s);
+    if (a.p.mt == 2) return launch<BN>(conv3x3_wgmma_kernel<BN, CC, 2>, a, B, s);
+  return launch<BN>(conv3x3_wgmma_kernel<BN, CC, 1>, a, B, s);
 }
 
 template <int CC>
-int dispatch_bn(const Args& a, int B, cudaStream_t s) {
+int dispatch_bn(const Args<__nv_bfloat16>& a, int B, cudaStream_t s) {
   switch (a.p.bn) {
     case 8: return dispatch_mt<8, CC>(a, B, s);
     case 16: return dispatch_mt<16, CC>(a, B, s);
@@ -454,13 +252,9 @@ int dispatch_bn(const Args& a, int B, cudaStream_t s) {
 extern "C" int dvd_conv3x3_wgmma_plan(int B, int Cin, int Cout, int H, int W,
                                       int dil, long long* out) {
   Plan p;
-  if (B <= 0 || Cin <= 0 || Cout <= 0 || H <= 0 || W <= 0 || dil < 1 ||
-      dil > kMaxDilation || !make_plan(Cin, Cout, H, W, dil, B, p))
+  if (!sizes_taken(B, Cin, Cout, H, W, dil) || !make_plan(kGeom, Cin, Cout, H, W, dil, B, p))
     return kNotTaken;
-  const long long vals[9] = {p.bn, p.cc, p.mt, p.th, p.tw, p.v, p.smem,
-                             (long long)p.tiles * dvd::ceil_div(Cout, p.bn) * B,
-                             (long long)dvd::ceil_div(Cin, p.cc) * chunk_k(p.cc)};
-  for (int i = 0; i < 9; ++i) out[i] = vals[i];
+  plan_values(p, B, Cin, Cout, out);
   return 0;
 }
 
@@ -472,11 +266,12 @@ extern "C" int dvd_conv3x3_wgmma(const void* x, const void* wk, const void* scal
                                  const void* bias, void* out, int B, int Cin,
                                  int Cout, int H, int W, int dil, int relu,
                                  void* stream) {
-  Args a{(const __nv_bfloat16*)x, (const __nv_bfloat16*)wk, (const float*)scale,
-         (const float*)bias, (__nv_bfloat16*)out, Cin, Cout, H, W, dil, relu, 0, {}};
-  if (B <= 0 || B > 65535 || Cin <= 0 || Cout <= 0 || H <= 0 || W <= 0 || dil < 1 ||
-      dil > kMaxDilation || reinterpret_cast<uintptr_t>(x) % 16 ||
-      reinterpret_cast<uintptr_t>(wk) % 16 || !make_plan(Cin, Cout, H, W, dil, B, a.p) ||
+  Args<__nv_bfloat16> a{(const __nv_bfloat16*)x, (const __nv_bfloat16*)wk,
+                        (const float*)scale, (const float*)bias, (__nv_bfloat16*)out,
+                        Cin, Cout, H, W, dil, relu, 0, {}};
+  if (!sizes_taken(B, Cin, Cout, H, W, dil) || B > 65535 ||
+      reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(wk) % 16 ||
+      !make_plan(kGeom, Cin, Cout, H, W, dil, B, a.p) ||
       (long long)dvd::ceil_div(Cout, a.p.bn) > 65535)
     return kNotTaken;
   a.nch = dvd::ceil_div(Cin, a.p.cc);

@@ -1,7 +1,8 @@
 // Hopper building blocks shared by the tensor-core kernels
-// (attention_wgmma.cu, conv3x3_wgmma.cu): cp.async copies, the async-proxy
-// fence, wgmma's fences and groups, shared-memory matrix descriptors and
-// bf16 packing.
+// (attention_wgmma.cu, conv3x3_wgmma.cu and their f32 counterparts
+// attention_f32x6.cu, conv3x3_f32x6.cu): cp.async copies, the async-proxy
+// fence, wgmma's fences and groups, shared-memory matrix descriptors, bf16
+// packing and the three-way bf16 split of f32 values.
 #pragma once
 
 #include "common.cuh"
@@ -71,6 +72,27 @@ __device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The f32 pair (a, b) as three packed bf16 pairs h + m + l, each half as
+// pack_bf16 lays it out: h = bf16(x), m = bf16(x - h), l = bf16(x - h - m),
+// rounded to nearest.  Both differences are exact in f32, and h + m + l ==
+// x exactly for |x| in [2^-100, 2^100] (ops/kernels/conv3x3.py:split3_bf16 is
+// the same arithmetic in torch).
+__device__ __forceinline__ void split3_pack(float a, float b, uint32_t& h,
+                                            uint32_t& m, uint32_t& l) {
+  const __nv_bfloat162 hv = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(hv);
+  const float ra = a - hf.x, rb = b - hf.y;
+  const __nv_bfloat162 mv = __floats2bfloat162_rn(ra, rb);
+  const float2 mf = __bfloat1622float2(mv);
+  h = bf16x2_bits(hv);
+  m = bf16x2_bits(mv);
+  l = bf16x2_bits(__floats2bfloat162_rn(ra - mf.x, rb - mf.y));
 }
 
 }  // namespace dvd

@@ -19,7 +19,8 @@ import torch.nn.functional as F
 
 from dvd_tpu_torch.ops.kernels.attention import attention
 from dvd_tpu_torch.ops.kernels.conv3x3 import (conv3x3, conv3x3_trainable,
-                                               k_major_weights)
+                                               k_major_weights,
+                                               k_major_weights_split)
 from dvd_tpu_torch.ops.quant import qlinear, quantize_rows
 from dvd_tpu_torch.utils.dtypes import at_least_f32
 
@@ -190,8 +191,8 @@ def fold_conv_bn(conv: nn.Conv2d, bn: Optional[BatchNorm],
                  dtype: torch.dtype):
     """(weight in ``dtype``, scale f32, bias f32, K-major weights) for K2:
     the conv bias and the frozen BN folded as ``planar_aux._fused_affine``
-    does; in bf16 also the bf16 kernel's weight operand
-    (``k_major_weights``), else None.
+    does, and the kernel's weight operand: ``k_major_weights`` in bf16,
+    its three-way split ``k_major_weights_split`` in f32, else None.
 
     Cached on the conv, keyed by the dtype, the weights' storage and their
     version counters, so it is recomputed only after the weights are
@@ -211,7 +212,8 @@ def fold_conv_bn(conv: nn.Conv2d, bn: Optional[BatchNorm],
         else:
             scale, shift = bn.affine()
             b = b * scale + shift
-        wk = k_major_weights(w) if dtype == torch.bfloat16 else None
+        wk = (k_major_weights(w) if dtype == torch.bfloat16 else
+              k_major_weights_split(w) if dtype == torch.float32 else None)
     folded = (w, scale.contiguous(), b.contiguous(), wk)
     conv.__dict__["_k2_fold"] = (key, folded)
     return folded

@@ -1,19 +1,21 @@
 """K1: fused attention forward and its plain twin.
 
 Replaces ``dvd_tpu/ops/pallas/attention.py:fused_attention``.  CUDA
-tensors go by dtype: bf16 to the tensor-core kernel
-(``csrc/attention_wgmma.cu``, counted in ``attention.launches_wgmma``),
-f32 to the CUDA-core kernel (``csrc/attention.cu``,
-``attention.launches_f32``); ``attention.launches`` counts both.  The
-wrapper reads q/k/v through their (b, h, t) strides, so the
+tensors go by dtype, both to the tensor cores: bf16 to
+``csrc/attention_wgmma.cu`` (counted in ``attention.launches_wgmma``), f32
+to ``csrc/attention_f32x6.cu`` (``attention.launches_f32``), which keeps
+f32 accuracy with six bf16 products over a three-way bf16 split of each
+operand (the TPU's ``precision=HIGHEST``); ``attention.launches`` counts
+both.  The wrapper reads q/k/v through their (b, h, t) strides, so the
 non-contiguous ``split_heads`` views go to the kernel without a copy; the
-last (Dh) dimension must be contiguous, and for bf16 each base pointer
-16-byte aligned and each stride a multiple of 8 elements (the kernel's
-16-byte async copies).  The output is allocated as a (B, T, H, Dh)
-buffer and returned as its (B, H, T, Dh) view, so ``merge_heads`` is a
-free reshape.  A head dim without a kernel instance (up to 256) is
-zero-padded to the next one (fresh, aligned copies) and the output sliced
-back.
+last (Dh) dimension must be contiguous.  The kernels' 16-byte async copies
+need each base pointer 16-byte aligned and each stride a multiple of 16
+bytes: a bf16 view that is not raises, an f32 view that is not is copied
+into a fresh, aligned buffer first.  The output is allocated as a
+(B, T, H, Dh) buffer and returned as its (B, H, T, Dh) view, so
+``merge_heads`` is a free reshape.  A head dim without a kernel instance
+(up to 256) is zero-padded to the next one (fresh, aligned copies) and the
+output sliced back.
 
 When a gradient is needed, ``attention`` goes through an autograd
 Function: forward K1, backward ``attention_bwd``, the f32 recompute of
@@ -36,7 +38,7 @@ from dvd_tpu_torch.utils.dtypes import at_least_f32
 # any other head dim up to 256 is zero-padded to the next (kernel_head_dim)
 HEAD_DIMS = (16, 64, 128, 192, 256)
 # CUDA entry by dtype
-_ENTRIES = {torch.float32: "dvd_attention_fwd",
+_ENTRIES = {torch.float32: "dvd_attention_fwd_f32x6",
             torch.bfloat16: "dvd_attention_fwd_wgmma"}
 
 
@@ -66,14 +68,22 @@ def _check(q, k, v):
     kernel_head_dim(dh)
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("attention: the head dim must be contiguous")
+    # f32 views that are not aligned, and padded head dims, are copied
     if q.dtype == torch.bfloat16 and dh in HEAD_DIMS:
         for name, t in zip("qkv", (q, k, v)):
-            if t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3]):
+            if not _aligned(t):
                 raise ValueError(
-                    f"attention: bf16 {name} at byte offset "
+                    f"attention: bfloat16 {name} at byte offset "
                     f"{t.data_ptr() % 16} with strides {t.stride()}; the "
                     "kernel takes 16-byte aligned bases and strides that "
                     "are multiples of 8")
+
+
+def _aligned(t: torch.Tensor) -> bool:
+    """Whether the kernels' 16-byte copies can read ``t`` in place: its
+    base 16-byte aligned and its (b, h, t) strides multiples of 16 bytes."""
+    per16 = 16 // t.element_size()   # elements per 16 bytes
+    return not (t.data_ptr() % 16 or any(st % per16 for st in t.stride()[:3]))
 
 
 def kernel_head_dim(dh: int) -> int:
@@ -145,7 +155,9 @@ def _forward(q, k, v, scale: float) -> torch.Tensor:
         return attention_ref(q, k, v, scale)
     _check(q, k, v)
     dh_in = q.shape[-1]
-    q, k, v = pad_head_dim(q, k, v)
+    q, k, v = (t if _aligned(t) else
+               t.clone(memory_format=torch.contiguous_format)
+               for t in pad_head_dim(q, k, v))
     b, h, tq, dh = q.shape
     tk = k.shape[2]
     out = torch.empty((b, tq, h, dh), dtype=q.dtype,

@@ -33,9 +33,10 @@ import torch
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("attention.cu", "attention_wgmma.cu", "conv3x3.cu",
+SOURCES = ("attention_f32x6.cu", "attention_wgmma.cu", "conv3x3_f32x6.cu",
            "conv3x3_wgmma.cu", "grid_sample.cu", "unwarp.cu", "gather_probe.cu")
-HEADERS = ("common.cuh", "hopper.cuh", "bilinear.cuh")
+HEADERS = ("common.cuh", "hopper.cuh", "attention.cuh", "conv3x3.cuh",
+           "bilinear.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -48,18 +49,24 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
-# K1's two entries (f32 on the CUDA cores, bf16 through wgmma) share one
-# argument list: pointers, B, H, Tq, Tk, Dh, (b, h, t) strides of q, k, v
-# and o, scale, dtype code, stream
+# K1's two entries (f32 through the split products, bf16 through wgmma)
+# share one argument list: pointers, B, H, Tq, Tk, Dh, (b, h, t) strides of
+# q, k, v and o, scale, dtype code, stream
 _ATTENTION = [_P, _P, _P, _P, _I, _I, _I, _I, _I,
               _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _F, _I, _P]
+# K2's two entries (f32, bf16): x, wk, scale, bias, out, B, Cin, Cout, H, W,
+# dilation, relu, stream; and their planners: B, Cin, Cout, H, W, dilation,
+# the plan's output array
+_CONV3X3 = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
+_CONV3X3_PLAN = [_I, _I, _I, _I, _I, _I, _P]
 # C entry points: name -> argtypes (every pointer and the stream as c_void_p)
 SIGNATURES = {
-    "dvd_attention_fwd": _ATTENTION,
+    "dvd_attention_fwd_f32x6": _ATTENTION,
     "dvd_attention_fwd_wgmma": _ATTENTION,
-    "dvd_conv3x3": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    "dvd_conv3x3_wgmma": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    "dvd_conv3x3_wgmma_plan": [_I, _I, _I, _I, _I, _I, _P],
+    "dvd_conv3x3_f32x6": _CONV3X3,
+    "dvd_conv3x3_f32x6_plan": _CONV3X3_PLAN,
+    "dvd_conv3x3_wgmma": _CONV3X3,
+    "dvd_conv3x3_wgmma_plan": _CONV3X3_PLAN,
     "dvd_gather_bilinear": [_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _I, _I,
                             _I, _P],
     "dvd_gather_bilinear_plan": [_I, _I, _L, _P],
@@ -128,11 +135,9 @@ def _bind(path: Path) -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.dvd_error_string.argtypes = [_I]
     lib.dvd_error_string.restype = ctypes.c_char_p
-    lib.dvd_attention_smem_bytes.argtypes = [_I]
-    lib.dvd_attention_wgmma_smem_bytes.argtypes = [_I]
-    lib.dvd_conv3x3_smem_bytes.argtypes = [_I, _I]
-    for fn in (lib.dvd_attention_smem_bytes, lib.dvd_attention_wgmma_smem_bytes,
-               lib.dvd_conv3x3_smem_bytes):
+    for fn in (lib.dvd_attention_f32x6_smem_bytes,
+               lib.dvd_attention_wgmma_smem_bytes):
+        fn.argtypes = [_I]
         fn.restype = _L
     return lib
 

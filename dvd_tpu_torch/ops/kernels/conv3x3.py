@@ -7,14 +7,17 @@ its contract: ``y = act(conv(x, w) * scale + bias)`` with ``scale`` and
 scale = 1 for plain convs), accumulation in f32, output in x's dtype.
 Layout is NCHW, the TPU kernel's planar layout without the 128-lane pad.
 
-CUDA tensors go by dtype: bf16 to the tensor-core implicit GEMM
-(``csrc/conv3x3_wgmma.cu``, counted in ``conv3x3.launches_wgmma``), f32
-to the CUDA-core direct conv (``csrc/conv3x3.cu``,
-``conv3x3.launches_f32``); ``conv3x3.launches`` counts both.  The bf16
-kernel reads the weights as a K-major copy (:func:`k_major_weights`),
-which the frozen aux nets build once per weight set in the fold cache
-(``models/layers.py:fold_conv_bn``) and other callers per call; x's base
-must be 16-byte aligned (its asynchronous copies).
+CUDA tensors go by dtype, both to an implicit GEMM on the tensor cores:
+bf16 to ``csrc/conv3x3_wgmma.cu`` (counted in ``conv3x3.launches_wgmma``),
+f32 to ``csrc/conv3x3_f32x6.cu`` (``conv3x3.launches_f32``), which keeps
+f32 accuracy with six bf16 products over a three-way bf16 split of each
+operand (the TPU's ``precision=HIGHEST``); ``conv3x3.launches`` counts
+both.  The kernels read the weights as a K-major copy: bf16
+(:func:`k_major_weights`) or its three-way split
+(:func:`k_major_weights_split`), which the frozen aux nets build once per
+weight set in the fold cache (``models/layers.py:fold_conv_bn``) and other
+callers per call.  A bf16 x's base must be 16-byte aligned (its
+asynchronous copies).
 
 ``conv3x3_trainable`` is the autograd Function for trainable convs (the
 DiT's conditioning pyramid): forward K2 on the live weights, backward
@@ -35,18 +38,21 @@ from dvd_tpu_torch.ops.kernels import build
 from dvd_tpu_torch.utils.dtypes import at_least_f32
 
 # the halo-padded input tile fills a block's shared memory at dilation 32
-# (csrc/conv3x3.cu and csrc/conv3x3_wgmma.cu kMaxDilation)
+# (csrc/conv3x3_wgmma.cu and csrc/conv3x3_f32x6.cu kMaxDilation)
 MAX_DILATION = 32
-# the bf16 kernel's code for an input it does not take
+# the kernels' code for an input they do not take
 _NOT_TAKEN = -1
 
 
-def chunk_channels(cin: int) -> int:
-    """Input channels per chunk of the bf16 kernel's K axis (as
-    ``csrc/conv3x3_wgmma.cu:chunk_channels``): 8 stacks two taps into each
-    k16 step for the image-entry convs (Cin 3, 4), 16 for U2NetP's
-    16-channel layers, 32 else."""
-    return 8 if cin <= 8 else 16 if cin <= 16 else 32
+def chunk_channels(cin: int, dtype: torch.dtype = torch.bfloat16) -> int:
+    """Input channels per chunk of the kernels' K axis (as
+    ``chunk_channels`` in ``csrc/conv3x3_wgmma.cu`` and
+    ``csrc/conv3x3_f32x6.cu``): 8 stacks two taps into each k16 step for
+    the image-entry convs (Cin 3, 4), 16 for U2NetP's 16-channel layers,
+    32 else in bf16; the f32 kernel's three weight planes take 16 at most."""
+    if cin <= 8:
+        return 8
+    return 16 if cin <= 16 or dtype == torch.float32 else 32
 
 
 def _chunk_k(cc: int) -> int:
@@ -54,24 +60,51 @@ def _chunk_k(cc: int) -> int:
     return -(-9 * cc // 16) * 16
 
 
-def k_major_cols(cin: int) -> int:
-    """Columns per output channel of :func:`k_major_weights`."""
-    cc = chunk_channels(cin)
+def k_major_cols(cin: int, dtype: torch.dtype = torch.bfloat16) -> int:
+    """Columns per output channel of the ``dtype`` kernel's K-major
+    weights."""
+    cc = chunk_channels(cin, dtype)
     return -(-cin // cc) * _chunk_k(cc)
+
+
+def _k_major(w: torch.Tensor, cc: int) -> torch.Tensor:
+    """(Cout, Cin, 3, 3) -> (Cout, nchunks * KC) in w's dtype: Cin cut into
+    chunks of ``cc`` (the last zero-padded), each chunk's columns tap-major
+    (ky, kx) and channel-minor, zero-padded to KC, a multiple of 16
+    (wgmma's k step)."""
+    cout, cin = w.shape[:2]
+    nch = -(-cin // cc)
+    wp = F.pad(w, (0, 0, 0, 0, 0, nch * cc - cin))
+    wk = wp.reshape(cout, nch, cc, 9).transpose(2, 3).reshape(cout, nch, 9 * cc)
+    return F.pad(wk, (0, _chunk_k(cc) - 9 * cc)).reshape(cout, -1).contiguous()
 
 
 def k_major_weights(w: torch.Tensor) -> torch.Tensor:
     """(Cout, Cin, 3, 3) -> the bf16 kernel's weight operand (Cout,
-    nchunks * KC) in bf16: Cin cut into chunks of ``chunk_channels(Cin)``
-    (the last zero-padded), each chunk's columns tap-major (ky, kx) and
-    channel-minor, zero-padded to KC, a multiple of 16 (wgmma's k step)."""
-    cout, cin = w.shape[:2]
-    cc = chunk_channels(cin)
-    nch = -(-cin // cc)
-    kc = _chunk_k(cc)
-    wp = F.pad(w.to(torch.bfloat16), (0, 0, 0, 0, 0, nch * cc - cin))
-    wk = wp.reshape(cout, nch, cc, 9).transpose(2, 3).reshape(cout, nch, 9 * cc)
-    return F.pad(wk, (0, kc - 9 * cc)).reshape(cout, nch * kc).contiguous()
+    nchunks * KC) in bf16 (:func:`_k_major` at ``chunk_channels(Cin)``)."""
+    return _k_major(w.to(torch.bfloat16), chunk_channels(w.shape[1]))
+
+
+def split3_bf16(x: torch.Tensor):
+    """f32 ``x`` as three bf16 tensors (h, m, l), each rounded to nearest:
+    h = bf16(x), m = bf16(x - h), l = bf16(x - h - m).  Both differences
+    are exact in f32, and h + m + l == x exactly for |x| in [2^-100,
+    2^100] (24 significant bits in three of 8).  The f32 kernels split
+    their operands so (``csrc/hopper.cuh:split3_pack``) and take a product
+    a b as l h + h l + m m + m h + h m + h h of the parts."""
+    h = x.to(torch.bfloat16)
+    r = x - h.float()
+    m = r.to(torch.bfloat16)
+    return h, m, (r - m.float()).to(torch.bfloat16)
+
+
+def k_major_weights_split(w: torch.Tensor) -> torch.Tensor:
+    """(Cout, Cin, 3, 3) -> the f32 kernel's weight operand (3, Cout,
+    nchunks * KC) in bf16: the K-major f32 weights (:func:`_k_major` at
+    ``chunk_channels(Cin, float32)``) split into planes h, m and l
+    (:func:`split3_bf16`), which sum back to them exactly."""
+    wk = _k_major(w.float(), chunk_channels(w.shape[1], torch.float32))
+    return torch.stack(split3_bf16(wk)).contiguous()
 
 
 def conv3x3_ref(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
@@ -116,47 +149,58 @@ def _check(x, w, scale, bias, dilation):
                                   "conv3x3_trainable is the Function")
 
 
+# by dtype: the C entry, its planner, and the weight operand's builder
+_ROUTES = {
+    torch.float32: ("dvd_conv3x3_f32x6", "dvd_conv3x3_f32x6_plan",
+                    k_major_weights_split),
+    torch.bfloat16: ("dvd_conv3x3_wgmma", "dvd_conv3x3_wgmma_plan",
+                     k_major_weights),
+}
+
+
+def _wk_shape(cin: int, cout: int, dtype: torch.dtype) -> tuple:
+    cols = k_major_cols(cin, dtype)
+    return (3, cout, cols) if dtype == torch.float32 else (cout, cols)
+
+
 def conv3x3(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
             bias: torch.Tensor, dilation: int = 1, relu: bool = True,
             wk: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(B, Cin, H, W) x (Cout, Cin, 3, 3) -> (B, Cout, H, W), padding =
     dilation.  CPU tensors take the plain twin; CUDA tensors launch K2 or
-    raise.  ``wk``: ``k_major_weights(w)``, for a caller that keeps it
-    (bf16 only; built here when None)."""
+    raise.  ``wk``: the kernel's weight operand for a caller that keeps it
+    (``k_major_weights(w)`` in bf16, ``k_major_weights_split(w)`` in f32;
+    built here when None)."""
     if x.device.type == "cpu":
         return conv3x3_ref(x, w, scale, bias, dilation, relu)
     dilation = int(dilation)
     _check(x, w, scale, bias, dilation)
     b, cin, h, wd = x.shape
     cout = w.shape[0]
+    entry, _, make_wk = _ROUTES[x.dtype]
+    wk = make_wk(w) if wk is None else wk
+    if (wk.dtype != torch.bfloat16 or wk.device != x.device
+            or not wk.is_contiguous()
+            or tuple(wk.shape) != _wk_shape(cin, cout, x.dtype)):
+        raise ValueError(f"conv3x3: wk {tuple(wk.shape)} {wk.dtype} on "
+                         f"{wk.device} is not {make_wk.__name__}(w)")
     out = torch.empty((b, cout, h, wd), dtype=x.dtype, device=x.device)
     kl = build.load_library()
+    err = getattr(kl.lib, entry)(
+        x.data_ptr(), wk.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+        out.data_ptr(), b, cin, cout, h, wd, dilation, int(bool(relu)),
+        build.stream_ptr(x))
+    if err == _NOT_TAKEN:
+        raise ValueError(
+            f"conv3x3: the {str(x.dtype)[6:]} kernel does not take x "
+            f"{tuple(x.shape)} at byte offset {x.data_ptr() % 16} (bf16: "
+            f"16-byte aligned bases), Cout {cout}, dilation {dilation}")
+    build.check_launch(kl, err, entry)
+    conv3x3.launches += 1
     if x.dtype == torch.float32:
-        err = kl.lib.dvd_conv3x3(
-            x.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-            out.data_ptr(), b, cin, cout, h, wd, dilation, int(bool(relu)),
-            build.DTYPE_CODES[x.dtype], build.stream_ptr(x))
-        build.check_launch(kl, err, "dvd_conv3x3")
         conv3x3.launches_f32 += 1
     else:
-        wk = k_major_weights(w) if wk is None else wk
-        if (wk.dtype != torch.bfloat16 or wk.device != x.device
-                or not wk.is_contiguous()
-                or tuple(wk.shape) != (cout, k_major_cols(cin))):
-            raise ValueError(f"conv3x3: wk {tuple(wk.shape)} {wk.dtype} on "
-                             f"{wk.device} is not k_major_weights(w)")
-        err = kl.lib.dvd_conv3x3_wgmma(
-            x.data_ptr(), wk.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-            out.data_ptr(), b, cin, cout, h, wd, dilation, int(bool(relu)),
-            build.stream_ptr(x))
-        if err == _NOT_TAKEN:
-            raise ValueError(
-                f"conv3x3: the bf16 kernel does not take x {tuple(x.shape)} "
-                f"at byte offset {x.data_ptr() % 16} (16-byte aligned bases), "
-                f"Cout {cout}, dilation {dilation}")
-        build.check_launch(kl, err, "dvd_conv3x3_wgmma")
         conv3x3.launches_wgmma += 1
-    conv3x3.launches += 1
     return out
 
 
@@ -166,19 +210,19 @@ conv3x3.launches_f32 = 0
 
 
 def wgmma_plan(b: int, cin: int, cout: int, h: int, w: int,
-               dilation: int = 1) -> dict:
-    """The bf16 kernel's launch plan for these sizes
-    (``csrc/conv3x3_wgmma.cu:dvd_conv3x3_wgmma_plan``): output channels
-    (bn) and input channels (cc) per block and chunk, m64 tiles per
-    warpgroup (mt), the th x tw pixel tile, the copy width v in elements
-    (1: plain loads), dynamic shared memory per block, blocks in the grid
-    and the K-major weights' columns."""
+               dilation: int = 1, dtype: torch.dtype = torch.bfloat16) -> dict:
+    """The ``dtype`` kernel's launch plan for these sizes (``*_plan`` in
+    ``csrc/conv3x3_wgmma.cu`` and ``csrc/conv3x3_f32x6.cu``): output
+    channels (bn) and input channels (cc) per block and chunk, m64 tiles
+    per warpgroup (mt), the th x tw pixel tile, the copy width v in
+    elements (1 in bf16: plain loads), dynamic shared memory per block,
+    blocks in the grid and the K-major weights' columns."""
     out = (ctypes.c_longlong * 9)()
     kl = build.load_library()
-    if kl.lib.dvd_conv3x3_wgmma_plan(b, cin, cout, h, w, int(dilation),
-                                     ctypes.addressof(out)) != 0:
-        raise ValueError(f"conv3x3: the bf16 kernel takes no {cin}->{cout} "
-                         f"@{h}x{w} d{dilation} b{b}")
+    if getattr(kl.lib, _ROUTES[dtype][1])(b, cin, cout, h, w, int(dilation),
+                                          ctypes.addressof(out)) != 0:
+        raise ValueError(f"conv3x3: the {str(dtype)[6:]} kernel takes no "
+                         f"{cin}->{cout} @{h}x{w} d{dilation} b{b}")
     return dict(zip(("bn", "cc", "mt", "th", "tw", "v", "smem", "blocks",
                      "k_cols"), out))
 

@@ -23,7 +23,9 @@ from dvd_tpu_torch.ops.grid_sample import unnormalize, warp_const_src
 from dvd_tpu_torch.ops.kernels.attention import HEAD_DIMS, attention, attention_ref
 from dvd_tpu_torch.ops.kernels.conv3x3 import (conv3x3, conv3x3_ref,
                                                conv3x3_trainable,
-                                               k_major_weights, wgmma_plan)
+                                               k_major_weights,
+                                               k_major_weights_split,
+                                               wgmma_plan)
 from dvd_tpu_torch.ops.kernels.gather2d import gather2d, gather2d_ref
 from dvd_tpu_torch.ops.kernels.grid_sample import (
     gather_bilinear, gather_bilinear_grad, gather_bilinear_grad_grid_ref,
@@ -53,7 +55,8 @@ def _routes():
 @pytest.mark.parametrize("dh", HEAD_DIMS)
 @pytest.mark.parametrize("tq,tk", [(64, 64), (37, 100), (130, 7)])
 def test_attention_kernel(dev, dh, tq, tk):
-    """f32: the CUDA-core kernel."""
+    """f32: the split-product tensor-core kernel, at the f32 bar; Tk 100
+    and 7 leave ragged 32- and 64-row tiles."""
     g = _gen()
     q = torch.randn(2, 3, tq, dh, generator=g).to(dev)
     k = torch.randn(2, 3, tk, dh, generator=g).to(dev)
@@ -103,22 +106,44 @@ def test_attention_strided_bf16(dev, dh):
                                rtol=0, atol=2e-2)
 
 
+def test_attention_f32_misaligned_views_are_copied(dev):
+    """An f32 view 4 bytes off a 16-byte boundary, or with a row stride of
+    65 elements, still launches the f32 kernel (on an aligned copy) and
+    equals the twin at the f32 bar."""
+    g = _gen()
+    buf = torch.randn(1 + 2 * 8 * 64, generator=g).to(dev)
+    wide = torch.randn(1, 2, 8, 65, generator=g).to(dev)
+    for q in (buf[1:].view(1, 2, 8, 64), wide[..., :64]):
+        f32 = attention.launches_f32
+        got = attention(q, q, q)
+        assert attention.launches_f32 == f32 + 1
+        torch.testing.assert_close(got, attention_ref(q, q, q, 1 / 8),
+                                   rtol=1e-4, atol=1e-4)
+
+
 @pytest.mark.parametrize("cin,cout,hw,dil", [
     (3, 16, (17, 23), 1), (4, 64, (8, 40), 1), (16, 16, (9, 9), 2),
     (16, 16, (9, 9), 4), (64, 16, (9, 9), 8), (40, 1, (11, 5), 1),
     (130, 33, (6, 70), 1), (9, 40, (9, 9), 32)])   # largest halo that fits
 @pytest.mark.parametrize("relu", [True, False])
 def test_conv3x3_kernel(dev, cin, cout, hw, dil, relu):
+    """f32: the split-product implicit GEMM, at the f32 bar."""
     g = _gen()
     x = torch.randn(2, cin, *hw, generator=g).to(dev)
     w = (torch.randn(cout, cin, 3, 3, generator=g) / (3 * cin ** 0.5)).to(dev)
     s = (1 + 0.1 * torch.randn(cout, generator=g)).to(dev)
     b = (0.1 * torch.randn(cout, generator=g)).to(dev)
-    before = conv3x3.launches
+    before, (wgmma, f32) = conv3x3.launches, _conv_routes()
     got = conv3x3(x, w, s, b, dil, relu)
     assert conv3x3.launches == before + 1
+    assert _conv_routes() == (wgmma, f32 + 1)
+    # the cached operand the aux nets pass gives the same result
+    assert torch.equal(conv3x3(x, w, s, b, dil, relu, k_major_weights_split(w)),
+                       got)
     torch.testing.assert_close(got, conv3x3_ref(x, w, s, b, dil, relu),
                                rtol=1e-4, atol=1e-5)
+    plan = wgmma_plan(2, cin, cout, *hw, dil, torch.float32)
+    assert plan["cc"] == (8 if cin <= 8 else 16) and plan["smem"] <= 232448
 
 
 def _conv_routes():
@@ -224,6 +249,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         conv3x3(xb, wb, one, one)
     with pytest.raises(ValueError):                         # bf16: not wk of w
         conv3x3(xb.clone(), wb, one, one, wk=k_major_weights(wb)[:, :16])
+    with pytest.raises(ValueError):                         # f32: not the split
+        conv3x3(x, w, one, one, wk=k_major_weights(w))
     img = torch.rand(1, 2, 4, 4, generator=g).to(dev)
     with pytest.raises(TypeError):
         gather_bilinear(img.half(), img[:, 0], img[:, 1])

@@ -190,6 +190,9 @@ def test_conv1x1_f32_is_the_f32_convolution():
     off TF32 (``tests/test_torch_cuda.py``)."""
     g = torch.Generator().manual_seed(1)
     conv = torch.nn.Conv2d(64, 2, 1)
+    with torch.no_grad():   # from g, not torch's global RNG
+        conv.weight.copy_(torch.randn(2, 64, 1, 1, generator=g) / 8)
+        conv.bias.copy_(0.1 * torch.randn(2, generator=g))
     x = torch.randn(2, 64, 9, 13, generator=g)
     want = torch.nn.functional.conv2d(x.double(), conv.weight.double(),
                                       conv.bias.double())
