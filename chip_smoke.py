@@ -20,16 +20,21 @@ exits non-zero -- nothing is caught):
             bf16 (K1 and K2: f32 must take the split-product kernel, bf16
             the wgmma one; at the f32 record cases the kernel's and the
             twin's max error against float64, the kernel's within 4x the
-            twin's or 2^-20 of max|ref|; K1 a ragged case and DiT-XL's
-            head dim 72,
-            zero-padded to 128; K2 bf16 at every shape class of the
+            twin's or 2^-20 of max|ref|; K1 a ragged case, DiT-XL's
+            head dim 72, zero-padded to 128, and GeoTr's (4, 8, 1296, 32)
+            in both dtypes, also against float64; K2 f32 at the VGG16
+            pyramid's seven classes and bf16 at GeoTr's stride-1 classes,
+            summed from CUDA graphs beside ``conv2d``; K2 bf16 at every
+            shape class of the
             serving and training paths, batches 4 and 10; K3 through both
             entries at its six main-path shapes, the augmentation's warp
             of image + mask at (10, 4, 512, 512) among them; the fused
             unwarp at the dataset path's uint8 2048^2 batch and the
             serving path's f32 512^2 one; K4 on the grid, both modes),
             with the stated tolerances (K5 bit for bit, at the probe's
-            case and at an unwarp-scale case); ``augment_batch`` on the
+            case, an unwarp-scale case and two with MN % 4 != 0, one of
+            them offset views, timed from Python and from a CUDA graph
+            beside ``torch.take``); ``augment_batch`` on the
             card against the CPU (the same raw batch and jitter factors);
             the autograd Functions (attention, the trainable conv,
             warp_const_src) against the autograd of the plain versions;
@@ -50,6 +55,12 @@ exits non-zero -- nothing is caught):
             all be > 0) and once on the CPU through the twins, with the
             same weights and the same pinned x_T; flow and unwarped image
             compared.
+3c. flags32  slice32 (one hypothesis) under the production DiT's other
+            conditioning configurations: GeoTr's init_flow with the VGG16
+            conditioning, then the 'seq' and the 'one' cross-attention
+            modes: card against CPU under slice32's bars, every K1 and K2
+            launch on the f32 route, GeoTr's 24 K1 launches on the Dh 32
+            instance, init_flow's range.
 3b. slice_int8  slice32 with ``quantize="int8"``: card against CPU, the
             int8 products counted (the code's count: each int8 layer of
             the live block once per stream and each of the decoder's once,
@@ -85,12 +96,19 @@ exits non-zero -- nothing is caught):
             distance from phase 4's (a reading), imgs/s and ms by stage,
             peak memory, one profiled run (int8 GEMM, elementwise and
             reduction device time against phase 4's profile).
+4d. flags   GeoTr's init_flow with the VGG16 conditioning served in
+            bf16, batch 4: launches and routes (GeoTr's 24 K1 launches on
+            the Dh 32 wgmma instance, the VGG's 7 K2 launches in f32, the
+            rest bf16), outputs, imgs/s, ms by stage with GeoTr and the VGG
+            pyramid timed alone, one profiled run.
 5. train32  one f32 train step of the shipped training config at full
             DiT-S/2 width, batch 2, 512^2: its loss and every gradient on
             the card through the kernels (K1-K4 launch counts must all be
             > 0) against the CPU through the twins, same weights (the
             zero-initialised layers drawn small), batch, t and noise,
             dropout off.
+5b. flags_train32  train32 under ``train_VGG=False`` (the VGG16
+            features in place of the DiT's pyramid).
 6. train    the shipped training config (bf16 compute, f32 parameters,
             batch 10, 512^2, time-variant loss with its rollout, the
             on-device augmentation) through ``training.train_loop.train``,
@@ -137,8 +155,10 @@ exits non-zero -- nothing is caught):
 The line before the last is the per-kernel JSON record (every kernel and
 route, each with the launches of the run that drives it: K1-K4 from the
 training run, the augmentation's K3 launches included, the fused unwarp
-from the serving run, the f32 routes from train32, K5 from the probe; and
-the int8 GEMM, a library route, from the int8 serving run);
+from the serving run, the f32 routes from train32, K1's Dh 32 instances
+from flags (bf16) and flags32 (f32), K2 f32 at the VGG classes from
+flags32, K5 from the probe; and the int8 GEMM, a library route, from the
+int8 serving run);
 the last line is ``{"ok": true, "device":
 {...}}``.  Without a CUDA device the script raises before printing any
 result.
@@ -206,6 +226,12 @@ F64_FLOOR = 2.0 ** -20
 RECORD_CASE = {
     "attention": "(8, 6, 1024, 256) scale 0.0625 bfloat16",
     "attention_f32": "(8, 6, 1024, 256) scale 0.0625 float32",
+    # GeoTr's attention (use_init_flow): 8 heads of 32 over 36^2 tokens
+    "attention_dh32": "(4, 8, 1296, 32) scale 0.176777 bfloat16",
+    "attention_f32_dh32": "(4, 8, 1296, 32) scale 0.176777 float32",
+    # the VGG16 pyramid's seven convs (train_VGG=False), summed
+    "conv3x3_f32_vgg": "VGG16's 7 classes, 3->64 @512^2 .. 256->256 @128^2, "
+                       "b4 float32, summed from CUDA graphs",
     "conv3x3": "256->256 @128^2 d1 b4 bfloat16",
     "conv3x3_f32": "256->256 @128^2 d1 b4 float32",
     "gather_bilinear": "(8, 256, 64, 64) zeros",
@@ -229,10 +255,16 @@ KERNELS = {
                   "dvd_tpu/ops/pallas/attention.py:49", "train"),
     "attention_f32": ("dvd_tpu_torch/csrc/attention_f32x6.cu",
                       "dvd_tpu/ops/pallas/attention.py:49", "train32"),
+    "attention_dh32": ("dvd_tpu_torch/csrc/attention_wgmma.cu",
+                       "dvd_tpu/ops/pallas/attention.py:49", "flags"),
+    "attention_f32_dh32": ("dvd_tpu_torch/csrc/attention_f32x6.cu",
+                           "dvd_tpu/ops/pallas/attention.py:49", "flags32"),
     "conv3x3": ("dvd_tpu_torch/csrc/conv3x3_wgmma.cu",
                 "dvd_tpu/ops/pallas/planar_conv.py:247", "train"),
     "conv3x3_f32": ("dvd_tpu_torch/csrc/conv3x3_f32x6.cu",
                     "dvd_tpu/ops/pallas/planar_conv.py:247", "train32"),
+    "conv3x3_f32_vgg": ("dvd_tpu_torch/csrc/conv3x3_f32x6.cu",
+                        "dvd_tpu/ops/pallas/planar_conv.py:247", "flags32"),
     "gather_bilinear": ("dvd_tpu_torch/csrc/grid_sample.cu",
                         "dvd_tpu/ops/pallas/grid_sample.py:122", "train"),
     "unwarp": ("dvd_tpu_torch/csrc/unwarp.cu",
@@ -399,11 +431,11 @@ def phase_env(state):
         if "warning" in line.lower():
             log(f"[env] nvcc: {line.strip()}")
     # the tensor-core kernels: every instance must run without spills and
-    # have HGMMA in its SASS (K1: 5 head dims in each dtype; K2 bf16: 4
+    # have HGMMA in its SASS (K1: 6 head dims in each dtype; K2 bf16: 4
     # widths x 3 chunk sizes, and 256-pixel blocks at n128 x 2 chunk sizes;
     # K2 f32: 3 widths x 2 chunk sizes, and 256-pixel blocks at n64, CC 16)
-    wgmma_kernels = {"attention_wgmma_kernel": 5, "conv3x3_wgmma_kernel": 14,
-                     "attention_f32x6_kernel": 5, "conv3x3_f32x6_kernel": 7}
+    wgmma_kernels = {"attention_wgmma_kernel": 6, "conv3x3_wgmma_kernel": 14,
+                     "attention_f32x6_kernel": 6, "conv3x3_f32x6_kernel": 7}
     spilled = []
     for entry, regs, spills in ptxas_report(kl.build_log):
         log(f"[env] ptxas -v {entry}: {regs}; {spills}")
@@ -480,6 +512,14 @@ def _qkv(b, h, t, dh, dtype, gen, dev):
     # strided, as the main path hands them to the kernel
     qkv = torch.randn((b, t, 3, h, dh), generator=gen, device=dev).to(dtype)
     return tuple(qkv[:, :, i].transpose(1, 2) for i in range(3))
+
+
+def _qkv_separate(b, h, t, dh, dtype, gen, dev):
+    # the split_heads views of three (B, T, H*Dh) projections (GeoTr's
+    # q_proj(tgt + pos), k_proj(memory + pos), v_proj(memory))
+    return tuple(torch.randn((b, t, h * dh), generator=gen, device=dev)
+                 .to(dtype).view(b, t, h, dh).transpose(1, 2)
+                 for _ in range(3))
 
 
 def _smooth_grid(n, p, q, gen, dev):
@@ -673,6 +713,21 @@ CONV_CLASSES = ((4, 64, 512, 1), (64, 64, 512, 1), (64, 128, 256, 1),
                 (16, 16, 9, 4), (16, 16, 9, 8), (64, 1, 288, 1))
 
 
+# the VGG16 pyramid's K2 classes at the serving batch, (B, Cin, Cout, H, W,
+# dilation) -> launches a run (models/vgg.py: VGG_LAYERS)
+VGG_CLASSES = {(4, 3, 64, 512, 512, 1): 1, (4, 64, 64, 512, 512, 1): 1,
+               (4, 64, 128, 256, 256, 1): 1, (4, 128, 128, 256, 256, 1): 1,
+               (4, 128, 256, 128, 128, 1): 1, (4, 256, 256, 128, 128, 1): 2}
+
+
+# GeoTr's stride-1 3x3 convs at the serving batch -> launches a run
+# (models/geotr.py: each ResidualBlock's conv2 and stride-1 conv1,
+# update_block's mask_0 and flow head)
+GEOTR_CLASSES = {(4, 64, 64, 144, 144, 1): 4, (4, 128, 128, 72, 72, 1): 3,
+                 (4, 192, 192, 36, 36, 1): 3, (4, 256, 256, 36, 36, 1): 2,
+                 (4, 256, 2, 36, 36, 1): 1}
+
+
 def _conv_case(b, cin, cout, hw, dt, gen, dev):
     """x, w, scale, bias of a conv at unit-scale activations; ``hw``: the
     plane's side, or (H, W)."""
@@ -713,15 +768,24 @@ def phase_kernels(state):
         # Dh 72 (DiT-XL/2: 16 heads of 72) has no instance: the wrapper
         # zero-pads it to 128; its bound is the Dh 72 work
         aims = {}
-        for shape, scale, dts, aim in (
-                ((8, 6, 1024, 64), 1 / 8, (torch.float32, bf16), 3.0),
-                ((8, 6, 1024, 256), 1 / 16, (torch.float32, bf16), 2.0),
-                ((8, 16, 1024, 72), 1 / math.sqrt(72), (torch.float32, bf16),
-                 0.0),
-                ((8, 6, 1000, 256), 1 / 16, (torch.float32, bf16),
-                 None)):  # ragged
+        both = (torch.float32, bf16)
+        # (shape, scale, dtypes, aim, q/k/v builder, record key suffix,
+        # GeoTr's: the bf16 kernel also held against float64, and timed
+        # from CUDA graphs too, since its launches are small)
+        for shape, scale, dts, aim, make_qkv, suffix, geotr in (
+                ((8, 6, 1024, 64), 1 / 8, both, 3.0, _qkv, "", False),
+                ((8, 6, 1024, 256), 1 / 16, both, 2.0, _qkv, "", False),
+                ((8, 16, 1024, 72), 1 / math.sqrt(72), both, 0.0, _qkv, "",
+                 False),
+                ((8, 6, 1000, 256), 1 / 16, both, None, _qkv, "",
+                 False),  # ragged
+                # GeoTr (use_init_flow): 8 heads of 32 over 36^2 tokens,
+                # ragged against every block size; q, k and v the
+                # split_heads views of three (B, T, 256) projections
+                ((4, 8, 1296, 32), 1 / math.sqrt(32), both, 0.0,
+                 _qkv_separate, "_dh32", True)):
             for dt in dts:
-                q, k, v = _qkv(*shape, dt, gen, dev)
+                q, k, v = make_qkv(*shape, dt, gen, dev)
                 before = routes("attention")
                 got = attention(q, k, v, scale)
                 route = routes("attention")
@@ -730,25 +794,34 @@ def phase_kernels(state):
                 bar = TOL["attention_f32"] if dt == torch.float32 else \
                     TOL["bf16"] * max(1.0, want.float().abs().max().item())
                 case = f"{shape} scale {scale:g} {str(dt)[6:]}"
-                key = "attention" if dt == bf16 else "attention_f32"
+                key = ("attention" if dt == bf16 else "attention_f32") + suffix
                 errs[key] = max(errs[key], compare(f"{case} {route}", got,
                                                    want, bar))
                 if route != {"wgmma": int(dt == bf16), "f32": int(dt != bf16)}:
                     raise AssertionError(f"K1 {case} took the routes {route}")
-                if dt == torch.float32:
+                if dt == torch.float32 or geotr:
+                    # (the bf16 kernel against its bf16 twin, both from
+                    # float64)
                     _vs_f64(case, got, want, attention_ref(
                         q.double(), k.double(), v.double(), scale),
-                        case == RECORD_CASE["attention_f32"])
+                        case in (RECORD_CASE["attention_f32"],
+                                 RECORD_CASE["attention_f32_dh32"],
+                                 RECORD_CASE["attention_dh32"]))
                 if aim is not None:  # timed in both dtypes; the aim is bf16's
                     if dt == bf16 and aim:
                         aims[case] = aim
                     b, h, tq, dh = shape
+                    library = lambda: F.scaled_dot_product_attention(
+                        q, k, v, scale=scale)
                     _record(times, key, case,
                             lambda: attention(q, k, v, scale),
-                            lambda: attention_ref(q, k, v, scale),
-                            lambda: F.scaled_dot_product_attention(
-                                q, k, v, scale=scale),
+                            lambda: attention_ref(q, k, v, scale), library,
                             _nbytes(q, k, v, got), 4 * b * h * tq * tq * dh, dt)
+                    if geotr:
+                        times[(key, case)].update(
+                            graph_ms=cuda_graph_ms(
+                                lambda: attention(q, k, v, scale)),
+                            library_graph_ms=cuda_graph_ms(library))
 
         log("[kernels] K2 conv3x3 (B, Cin, H, W) -> Cout, dilation: f32 "
             "through six bf16 products over a three-way split, bf16 through "
@@ -804,6 +877,23 @@ def phase_kernels(state):
                             lambda: F.conv2d(x, w, bl, 1, d, d),
                             _nbytes(x, w, s, bi, got),
                             2 * b * cout * cin * 9 * hw * hw, bf16)
+
+        # the VGG16 pyramid (train_VGG=False) runs in f32 whatever the
+        # compute dtype: its seven convs, from CUDA graphs beside f32
+        # conv2d (TF32 off), summed
+        vgg = _time_conv_classes(Counter(VGG_CLASSES), state["label"],
+                                 "kernels", torch.float32)
+        times[("conv3x3_f32_vgg", RECORD_CASE["conv3x3_f32_vgg"])] = dict(
+            ms=vgg["kernel"], plain_ms=vgg["plain"], library_ms=vgg["conv2d"],
+            bound_ms=vgg["bound"],
+            bound_by="bytes" if 2 * vgg["bytes"] >= vgg["bound"]
+            else "operations")
+        errs["conv3x3_f32_vgg"] = vgg["max_err"]
+        # GeoTr's stride-1 convs (use_init_flow) in the compute dtype,
+        # against their twin and timed the same way (a reading)
+        geotr = _time_conv_classes(Counter(GEOTR_CLASSES), state["label"],
+                                   "kernels", bf16)
+        errs["conv3x3"] = max(errs["conv3x3"], geotr["max_err"])
 
         log("[kernels] K3 gather_bilinear (N, C, H, W) at a smooth flow grid: "
             "the [-1, 1] grid entry (the main path's), then the pixel-plane "
@@ -876,7 +966,9 @@ def phase_kernels(state):
                     torch.float32)
 
         log("[kernels] K5 gather2d (H, W) f32 at (M, N) int32 indices, bit "
-            "for bit: the probe's case, then an unwarp-scale one")
+            "for bit: the probe's case, an unwarp-scale one, and MN % 4 != 0 "
+            "with aligned and offset (not 16-byte aligned) index planes, "
+            "the vector path's tail and the scalar path")
         n = 2048
         ramp = torch.arange(n, device=dev, dtype=torch.int32)
 
@@ -884,30 +976,54 @@ def phase_kernels(state):
             return torch.randint(-2, 3, (n, n), generator=gen, device=dev,
                                  dtype=torch.int32)
 
-        cases = [("(64, 256) f32 at (8, 128) int32, the probe's case",
-                  *(a.to(dev) for a in probe_inputs())),
+        def ragged(offset):
+            # y and x, each (37, 101) (3737 = 4 * 934 + 1), offset views
+            # ``offset`` elements into their own buffers
+            m, w = 37, 101
+            return tuple(torch.randint(-3, 70, (m * w + offset,),
+                                       generator=gen, device=dev,
+                                       dtype=torch.int32)[offset:].view(m, w)
+                         for _ in range(2))
+
+        probe = ("(64, 256) f32 at (8, 128) int32, the probe's case",
+                 *(a.to(dev) for a in probe_inputs()))
+        cases = [probe,
                  (RECORD_CASE["gather2d"],
                   torch.rand((n, n), generator=gen, device=dev),
                   (ramp[:, None] + jitter()).clamp_(0, n - 1).contiguous(),
-                  (ramp[None, :] + jitter()).clamp_(0, n - 1).contiguous())]
+                  (ramp[None, :] + jitter()).clamp_(0, n - 1).contiguous()),
+                 ("(64, 64) f32 at (37, 101) int32, MN % 4 = 1",
+                  torch.rand((64, 64), generator=gen, device=dev),
+                  *ragged(0)),
+                 ("(64, 64) f32 at (37, 101) int32 offset views (+4 bytes)",
+                  torch.rand((64, 64), generator=gen, device=dev),
+                  *ragged(1))]
         for case, im, iy, ix in cases:
             got = gather2d(im, iy, ix)
             want = gather2d_ref(im, iy, ix)
             err = (got - want).abs().max().item()
             exact = torch.equal(got, want)
             log(f"  {case}: bit for bit {'ok' if exact else 'FAIL'} "
-                f"(max_abs_err {err:.3e})")
+                f"(max_abs_err {err:.3e}; index bases at "
+                f"{iy.data_ptr() % 16}/{ix.data_ptr() % 16} mod 16 bytes)")
             if not exact:
                 raise AssertionError(f"K5 {case}: not bit for bit ({err})")
             errs["gather2d"] = max(errs["gather2d"], err)
+            if case not in (probe[0], RECORD_CASE["gather2d"]):
+                continue
             flat = im.reshape(-1)
             idx = iy.long() * im.shape[1] + ix.long()
             # no floating-point work: bound by the bytes alone
+            library = lambda: torch.take(flat, idx)
             _record(times, "gather2d", case,
                     lambda: gather2d(im, iy, ix),
-                    lambda: gather2d_ref(im, iy, ix),
-                    lambda: torch.take(flat, idx),
+                    lambda: gather2d_ref(im, iy, ix), library,
                     _nbytes(im, iy, ix, got), 0, torch.float32)
+            # a launch of a few microseconds from Python measures the
+            # host's launch cost: both again from a CUDA graph
+            times[("gather2d", case)].update(
+                graph_ms=cuda_graph_ms(lambda: gather2d(im, iy, ix)),
+                library_graph_ms=cuda_graph_ms(library))
 
     log("[kernels] autograd Functions against the autograd of the plain "
         "versions, at the training path's shapes (batch 10): the forward "
@@ -1052,6 +1168,7 @@ def reset_launches() -> None:
             f.launches = 0
     for name in ROUTED:
         fns[name].launches_wgmma = fns[name].launches_f32 = 0
+    fns["attention"].launches_by_dh.clear()
     quant.launches = 0          # the int8 GEMM (a library call)
 
 
@@ -1060,10 +1177,45 @@ def read_launches() -> dict:
             else fn.launches for name, fn in _kernel_fns().items()}
 
 
+def attention_by_dh() -> dict:
+    """K1's launches since the last reset by the instance's head dim."""
+    return dict(sorted(_kernel_fns()["attention"].launches_by_dh.items()))
+
+
 def routes(name: str) -> dict:
     """A routed kernel's launches by route."""
     fn = _kernel_fns()[name]
     return {"wgmma": fn.launches_wgmma, "f32": fn.launches_f32}
+
+
+@contextlib.contextmanager
+def vgg_k2_counter(vgg, record: dict):
+    """While open, adds the K2 launches that the VGG16 pyramid ``vgg``
+    (None: nothing) makes inside its forward calls to ``record``, by
+    route, through hooks on the module, removed on exit."""
+    if vgg is None:
+        yield record
+        return
+    k2 = _kernel_fns()["conv3x3"]
+    before = {}
+
+    def now():
+        return {"wgmma": k2.launches_wgmma, "f32": k2.launches_f32}
+
+    def pre(module, args):
+        before.update(now())
+
+    def post(module, args, out):
+        for r, n in now().items():
+            record[r] = record.get(r, 0) + n - before[r]
+
+    hooks = (vgg.register_forward_pre_hook(pre),
+             vgg.register_forward_hook(post))
+    try:
+        yield record
+    finally:
+        for h in hooks:
+            h.remove()
 
 
 def gather_routes() -> dict:
@@ -1167,7 +1319,7 @@ def _slice_card_vs_cpu(cfg, tag: str, codes=None):
         # a small final projection keeps the flow inside the [-1, 1] clamp,
         # so the comparison below sees it rather than the clamp
         with torch.no_grad():
-            pipe.dit.final_layer2.linear.weight.mul_(0.1)
+            pipe.dit.final.linear.weight.mul_(0.1)
     shift = _mask_logit_shift(pipes["cpu"], src)
     runs = {}
     for dev in ("cuda", "cpu"):
@@ -1181,15 +1333,25 @@ def _slice_card_vs_cpu(cfg, tag: str, codes=None):
             torch.cuda.synchronize()
             reset_launches()
         t0 = time.perf_counter()
-        with codes(dev) if codes else contextlib.nullcontext():
+        with codes(dev) if codes else contextlib.nullcontext(), \
+                vgg_k2_counter(pipe.vgg, {"wgmma": 0, "f32": 0}) as vgg_k2:
             flow = pipe.dewarp_flow(src.to(dev), init_noise=noise.to(dev))
             image = unwarp_fixed(src.to(dev), flow)
         if dev == "cuda":
             torch.cuda.synchronize()
             counts = dict(read_launches(), int8=quant.launches,
-                          int8_expected=_int8_expected(pipe))
+                          int8_expected=_int8_expected(pipe),
+                          attention_routes=routes("attention"),
+                          attention_by_dh=attention_by_dh(), vgg_k2=vgg_k2)
             check_conv_route(tag, torch.float32)
             check_gather_route(tag)
+            if m.use_init_flow:   # GeoTr's offsets, as the DiT receives them
+                with torch.inference_mode():
+                    f0 = pipe.build_conditioning(src.cuda())[1]
+                log(f"[{tag}] init_flow (GeoTr's map / {m.perception_size - 1}"
+                    f", at the latent size) in [{f0.min().item():.4f}, "
+                    f"{f0.max().item():.4f}], mean |.| "
+                    f"{f0.abs().mean().item():.4f}")
         runs[dev] = (flow.cpu(), image.cpu())
         log(f"[{tag}] {dev}: {m.dit_variant} {m.compute_dtype} "
             f"quantize={m.quantize} batch 1, {m.source_size}^2, "
@@ -1210,6 +1372,7 @@ def _slice_card_vs_cpu(cfg, tag: str, codes=None):
         f"{(fc.abs() >= 1).float().mean().item():.2%}")
     compare(f"{tag} flow card vs CPU", fc, fp, TOL["slice_flow"])
     compare(f"{tag} unwarped image card vs CPU", ic, ip, TOL["slice_image"])
+    return counts
 
 
 def phase_slice32(state):
@@ -1487,7 +1650,8 @@ def _time_conv_classes(shapes: Counter, label: str, tag: str = "shipped",
     """Every K2 shape class of one serving run, on fresh inputs in
     ``dtype``: the kernel against its twin (the phase-2 bar), then its
     time beside ``conv2d``'s (f32: TF32 off) and its bound, and the sums
-    over the run's launches."""
+    over the run's launches (``bytes``: the bound's part from the classes
+    bound by bytes; ``max_err``: the largest error against the twin)."""
     import torch.nn.functional as F
 
     from dvd_tpu_torch.ops.kernels.conv3x3 import (conv3x3, conv3x3_ref,
@@ -1501,7 +1665,7 @@ def _time_conv_classes(shapes: Counter, label: str, tag: str = "shipped",
         f"per serving run; then the kernel's ms per call back to back from "
         f"Python (the host's launch cost included) and the plain twin's ms "
         f"in a CUDA graph")
-    total = Counter()
+    total, max_err = Counter(), 0.0
     for (b, cin, cout, h, w, d), n in sorted(shapes.items()):
         x, wt, s, bi = _conv_case(b, cin, cout, (h, w), dtype, gen, "cuda")
         # f32: the split weights, once per weight set as the fold cache
@@ -1516,6 +1680,7 @@ def _time_conv_classes(shapes: Counter, label: str, tag: str = "shipped",
         if not err <= bar:
             raise AssertionError(f"K2 {cin}->{cout} @{h}x{w} d{d} b{b}: "
                                  f"{err:.3e} > {bar:.3e}")
+        max_err = max(max_err, err)
         ms = cuda_graph_ms(lambda: conv3x3(x, wt, s, bi, d, True, wk))
         lib = cuda_graph_ms(lambda: F.conv2d(x, wt, bl, 1, d, d))
         eager = cuda_time_ms(lambda: conv3x3(x, wt, s, bi, d, True, wk))
@@ -1524,7 +1689,8 @@ def _time_conv_classes(shapes: Counter, label: str, tag: str = "shipped",
         by_ops = 18 * b * cin * cout * h * w / PEAK_FLOPS[dtype] * 1e3
         bound = max(by_bytes, by_ops)
         total.update(kernel=n * ms, conv2d=n * lib, bound=n * bound,
-                     eager=n * eager, plain=n * plain)
+                     eager=n * eager, plain=n * plain,
+                     bytes=n * bound if by_bytes >= by_ops else 0.0)
         log(f"  {cin}->{cout} @{h}x{w} d{d} b{b}: {ms:.4f} {lib:.4f} "
             f"{bound:.3g} ({'bytes' if by_bytes >= by_ops else 'operations'}) "
             f"x{n}; {eager:.4f}; {plain:.4f}")
@@ -1533,7 +1699,7 @@ def _time_conv_classes(shapes: Counter, label: str, tag: str = "shipped",
         f"{total['conv2d']:.3f} ms ({total['kernel'] / total['conv2d']:.2f}x), "
         f"bound {total['bound']:.4f} ms; back to back from Python "
         f"{total['eager']:.3f} ms; plain twin {total['plain']:.3f} ms ({label})")
-    return dict(total)
+    return dict(total, max_err=max_err)
 
 
 def _profile(pipe, src, gen, label, top=25,
@@ -1678,13 +1844,26 @@ def _fill_zero_layers(dit, seed: int, std: float = 0.02) -> None:
 
 def phase_train32(state):
     from dvd_tpu_torch.config import default_config
+
+    counts = _train_card_vs_cpu(default_config().replace(
+        model={"compute_dtype": "float32"}, train={"on_device_aug": False}),
+        "train32")
+    state["train32_launches"] = dict(
+        counts, attention_f32=counts["attention_routes"]["f32"],
+        conv3x3_f32=counts["conv3x3_routes"]["f32"])
+
+
+def _train_card_vs_cpu(cfg, tag: str) -> dict:
+    """One f32 train step of ``cfg`` at batch 2 and 512^2: its loss and
+    every gradient on the card through the kernels (K1-K4 launched, K2
+    and K3 routes checked) against the CPU through the twins, from the
+    same weights (the zero-initialised layers drawn small), batch, t and
+    noise, dropout off; returns the card run's launches."""
     from dvd_tpu_torch.evaluation.pipeline import DewarpPipeline
     from dvd_tpu_torch.training.train_loop import build_device_batch
     from dvd_tpu_torch.training.train_state import (create_train_state,
                                                     make_train_step)
 
-    cfg = default_config().replace(model={"compute_dtype": "float32"},
-                                   train={"on_device_aug": False})
     m = cfg.model
     b = 2
     gen = torch.Generator().manual_seed(SEED + 6)
@@ -1712,57 +1891,57 @@ def phase_train32(state):
             torch.cuda.synchronize()
             reset_launches()
         t0 = time.perf_counter()
-        batch = build_device_batch(
-            pipe, {k: v.to(dev) for k, v in raw.items()}, m.image_size)
-        with _loss_warp_points(loss_warp, dev):
-            grads, _, metrics = step.loss_and_grads(
-                train_state, batch, None, t=t, noise=noise,
-                rollout_noise=rollout_noise)
+        with vgg_k2_counter(pipe.vgg, {"wgmma": 0, "f32": 0}) as vgg_k2:
+            batch = build_device_batch(
+                pipe, {k: v.to(dev) for k, v in raw.items()}, m.image_size)
+            with _loss_warp_points(loss_warp, dev):
+                grads, _, metrics = step.loss_and_grads(
+                    train_state, batch, None, t=t, noise=noise,
+                    rollout_noise=rollout_noise)
         if dev == "cuda":
             torch.cuda.synchronize()
-            counts = read_launches()
-            check_conv_route("train32", torch.float32)
-            check_gather_route("train32")
-            state["train32_launches"] = dict(
-                counts, attention_f32=routes("attention")["f32"],
-                conv3x3_f32=routes("conv3x3")["f32"])
+            counts = dict(read_launches(), attention_routes=routes("attention"),
+                          conv3x3_routes=routes("conv3x3"), vgg_k2=vgg_k2)
+            check_conv_route(tag, torch.float32)
+            check_gather_route(tag)
         names = list(train_state.named_params())
         runs[dev] = (metrics["loss"].item(),
                      {k: g.detach().cpu() for k, g in zip(names, grads)})
-        log(f"[train32] {dev}: {m.dit_variant} float32 batch {b}, 512^2, "
+        log(f"[{tag}] {dev}: {m.dit_variant} float32 batch {b}, 512^2, "
             f"t={t.tolist()}, loss and gradients in "
             f"{time.perf_counter() - t0:.2f} s (outconv bias shift "
             f"{shift:+.3f}, soft-mask margin {margin:.3f})")
     del pipes
-    log(f"[train32] the loss warp's points, card vs CPU: max |d| "
+    log(f"[{tag}] the loss warp's points, card vs CPU: max |d| "
         f"{loss_warp['max_d']:.3e} of the [-1, 1] grid (bar "
         f"{TOL['train_points']:.0e}); {loss_warp['crossed']} of "
         f"{loss_warp['n']} fell in another corner cell on the CPU and took "
         f"the card's coordinates there for K4's twin")
     if not loss_warp["max_d"] <= TOL["train_points"]:
-        raise AssertionError(f"train32 loss-warp points differ by "
+        raise AssertionError(f"{tag} loss-warp points differ by "
                              f"{loss_warp['max_d']:.3e}")
-    log(f"[train32] kernel launches in the card run: {counts}")
+    log(f"[{tag}] kernel launches in the card run: {counts}")
     if min(counts[k] for k in TRAIN_KERNELS) <= 0:
         raise AssertionError(f"a kernel of the path did not launch: {counts}")
     (lc, gc), (lp, gp) = runs["cuda"], runs["cpu"]
     rel = abs(lc - lp) / max(abs(lp), 1e-30)
-    log(f"[train32] loss card {lc:.8f} CPU {lp:.8f}: relative "
+    log(f"[{tag}] loss card {lc:.8f} CPU {lp:.8f}: relative "
         f"{rel:.3e} (bar {TOL['train_loss_rel']:.0e}) "
         f"{'ok' if rel <= TOL['train_loss_rel'] else 'FAIL'}")
     if not (math.isfinite(lc) and rel <= TOL["train_loss_rel"]):
-        raise AssertionError(f"train32 loss: card {lc} vs CPU {lp}")
+        raise AssertionError(f"{tag} loss: card {lc} vs CPU {lp}")
     worst = (0.0, "")
     for k, want in gp.items():
         bar = TOL["train_grad"] * max(1.0, want.abs().max().item())
         err = (gc[k] - want).abs().max().item()
         if not (math.isfinite(err) and err <= bar):
-            raise AssertionError(f"train32 gradient {k}: {err:.3e} > {bar:.3e}")
+            raise AssertionError(f"{tag} gradient {k}: {err:.3e} > {bar:.3e}")
         worst = max(worst, (err / bar, k))
     nz = sum(int(g.abs().max() > 0) for g in gp.values())
-    log(f"[train32] {len(gp)} gradient tensors ({nz} nonzero) within "
+    log(f"[{tag}] {len(gp)} gradient tensors ({nz} nonzero) within "
         f"{TOL['train_grad']:.0e} x max(1, max|g|); the closest to its bar: "
         f"{worst[1]} at {worst[0]:.3f} of it")
+    return counts
 
 
 @contextlib.contextmanager
@@ -2716,6 +2895,169 @@ def phase_shipped32(state):
     state["shipped32"] = dict(imgs_per_sec=batch / total, stage=stage,
                               busy_ms=busy, conv_classes=conv)
 
+# the production DiT's other conditioning configurations (the flags of
+# dvd_tpu's pipeline and train step the port serves and trains)
+FLAG_CONFIGS = (("init_flow+vgg", {"use_init_flow": True, "train_VGG": False}),
+                ("seq", {"separate_cross_attn": "seq"}),
+                ("one", {"separate_cross_attn": "one"}))
+# GeoTr's K1 launches a conditioning batch: 12 layers x 2 attentions, Dh 32
+GEOTR_K1 = 24
+
+
+def phase_flags32(state):
+    """Serving at full DiT-S/2 width, 512^2, batch 1, f32, under each of
+    FLAG_CONFIGS: card against CPU (slice32's bars), every K1 and K2 launch
+    on the f32 route, GeoTr's Dh 32 launches and the VGG's K2 counted."""
+    from dvd_tpu_torch.config import default_config
+
+    flags32 = {}
+    for name, flags in FLAG_CONFIGS:
+        counts = _slice_card_vs_cpu(default_config().replace(
+            model={"compute_dtype": "float32", **flags},
+            diffusion={"n_batch": 1}), f"flags32 {name}")
+        k1, by_dh = counts["attention_routes"], counts["attention_by_dh"]
+        want32 = GEOTR_K1 if flags.get("use_init_flow") else 0
+        want_vgg = {"wgmma": 0, "f32": 0 if flags.get("train_VGG", True)
+                    else sum(VGG_CLASSES.values())}
+        log(f"[flags32 {name}] K1 by route {k1}, by head dim {by_dh}; the "
+            f"VGG's K2 launches by route {counts['vgg_k2']}")
+        if k1 != {"wgmma": 0, "f32": counts["attention"]} or \
+                by_dh.get(32, 0) != want32:
+            raise AssertionError(f"flags32 {name}: K1 routes {k1}, by head "
+                                 f"dim {by_dh}; {want32} Dh 32 expected")
+        if counts["vgg_k2"] != want_vgg:
+            raise AssertionError(f"flags32 {name}: the VGG's K2 launches "
+                                 f"{counts['vgg_k2']}, {want_vgg} expected")
+        flags32[name] = counts
+    first = flags32["init_flow+vgg"]
+    state["flags32_launches"] = {
+        "attention_f32_dh32": first["attention_by_dh"][32],
+        "conv3x3_f32_vgg": first["vgg_k2"]["f32"]}
+
+
+def _flag_stage_ms(pipe, src, iters: int) -> dict:
+    """GeoTr and the VGG pyramid alone, ms per batch, the mean of
+    ``iters`` synchronised calls on the conditioning's own inputs."""
+    from dvd_tpu_torch.ops.resize import resize_bilinear
+
+    per = pipe.cfg.model.perception_size
+    x = src.permute(0, 3, 1, 2).contiguous()
+    xa = resize_bilinear(x, (per, per), True).to(pipe.dtype).contiguous()
+    out = {}
+    with torch.inference_mode():
+        for name, fn in (("GeoTr", lambda: pipe.geotr(xa)),
+                         ("VGG", lambda: pipe.vgg(x))):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            out[name] = (time.perf_counter() - t0) / iters * 1e3
+    return out
+
+
+def phase_flags(state):
+    """FLAG_CONFIGS' first (GeoTr's init_flow and the VGG conditioning)
+    served in bf16 at batch 4, 512^2: launches and routes (GeoTr's 24 K1
+    launches on the Dh 32 wgmma instance, the VGG's 7 K2 launches f32, the
+    rest bf16), outputs, imgs/s, ms by stage (GeoTr and VGG timed alone
+    inside conditioning) and one profiled run."""
+    from dvd_tpu_torch.config import default_config
+    from dvd_tpu_torch.evaluation.pipeline import DewarpPipeline, unwarp_fixed
+
+    name, flags = FLAG_CONFIGS[0]
+    cfg = default_config().replace(model=flags)
+    m, d = cfg.model, cfg.diffusion
+    batch, label = cfg.data.eval_device_batch, state["label"]
+    pipe = DewarpPipeline.create(
+        cfg, "cuda", generator=torch.Generator().manual_seed(SEED + 3))
+    gen = torch.Generator().manual_seed(SEED + 4)
+    src = _page(batch, m.source_size, m.source_size, gen).cuda()
+    cuda_gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    log(f"[flags] {name}: {m.dit_variant} {m.compute_dtype} batch {batch}, "
+        f"{m.source_size}^2, {d.diffusion_steps} DDIM steps x {d.n_batch} "
+        f"hypotheses ({label})")
+    torch.cuda.synchronize()
+    reset_launches()
+    with conv_shape_counter(Counter()) as shapes, torch.inference_mode(), \
+            vgg_k2_counter(pipe.vgg, {"wgmma": 0, "f32": 0}) as vgg_k2:
+        cond, init_flow, init_feat = pipe.build_conditioning(src)
+        flow = pipe.sampling_impl(cond, init_flow, init_feat, cuda_gen)
+        out = unwarp_fixed(src, flow)
+    torch.cuda.synchronize()
+    counts, k1, k2 = read_launches(), routes("attention"), routes("conv3x3")
+    short = {c: (shapes[c], n) for c, n in {**GEOTR_CLASSES,
+                                            **VGG_CLASSES}.items()
+             if shapes[c] < n}
+    if short:   # phase 2 holds K2 at these classes: they must be the run's
+        raise AssertionError(f"flags: K2 classes launched less than "
+                             f"expected (launched, expected): {short}")
+    by_dh = attention_by_dh()
+    want_vgg = {"wgmma": 0, "f32": sum(VGG_CLASSES.values())}
+    log(f"[flags] kernel launches in one main-path run: {counts}; K1 by "
+        f"route {k1}, by head dim {by_dh}; K2 by route {k2}, the VGG's "
+        f"{vgg_k2}")
+    if k1 != {"wgmma": counts["attention"], "f32": 0} or \
+            by_dh.get(32, 0) != GEOTR_K1:
+        raise AssertionError(f"flags: K1 routes {k1}, by head dim {by_dh}")
+    if vgg_k2 != want_vgg or k2 != {"wgmma": counts["conv3x3"] - vgg_k2["f32"],
+                                    "f32": vgg_k2["f32"]}:
+        raise AssertionError(f"flags: K2 routes {k2}, the VGG's {vgg_k2}: "
+                             f"{want_vgg} expected, the rest bf16")
+    check_gather_route("flags")
+    if counts["unwarp"] != 1 or counts["gather_bilinear"] <= 0:
+        raise AssertionError(f"flags: launches {counts}")
+    if flow.shape != (batch, m.image_size, m.image_size, 2) or \
+            out.shape != src.shape or not (
+                torch.isfinite(flow).all() and torch.isfinite(out).all()
+                and flow.abs().max() <= 1 and torch.isfinite(init_flow).all()
+                and init_flow.abs().max() > 0):
+        raise AssertionError("flags outputs malformed, not finite, the flow "
+                             "outside [-1, 1] or no init_flow")
+    log(f"[flags] init_flow in [{init_flow.min().item():.4f}, "
+        f"{init_flow.max().item():.4f}]; flow |max| "
+        f"{flow.abs().max().item():.4f}; unwarped image range "
+        f"[{out.min().item():.3f}, {out.max().item():.3f}]")
+    state["flags_launches"] = {"attention_dh32": by_dh[32]}
+
+    iters = 5
+    stage = _warm_stages(pipe, src, cuda_gen, iters)
+    total = sum(stage.values())
+    alone = _flag_stage_ms(pipe, src, iters)
+    log(f"[flags] {batch / total:.2f} imgs/s at batch {batch} "
+        f"({total * 1e3:.1f} ms per batch, mean of {iters} warm runs; "
+        f"{label})")
+    for k, v in stage.items():
+        log(f"[flags]   {k}: {v * 1e3:.2f} ms per batch ({label})")
+    for k, v in alone.items():
+        log(f"[flags]     of conditioning, {k} alone: {v:.2f} ms per batch "
+            f"({label})")
+    rows, busy, wall = _profile(
+        pipe, src, cuda_gen, label,
+        need=("attention_wgmma_kernel", "conv3x3_wgmma_kernel",
+              "conv3x3_f32x6_kernel", "gather_bilinear_kernel",
+              "unwarp_kernel"))
+    state["flags"] = dict(imgs_per_sec=batch / total, stage=stage,
+                          alone=alone, busy_ms=busy, wall_ms=wall * 1e3)
+
+
+def phase_flags_train32(state):
+    """One f32 train step under ``train_VGG=False`` (the VGG16 features in
+    place of the DiT's pyramid), batch 2: card against CPU as train32."""
+    from dvd_tpu_torch.config import default_config
+
+    counts = _train_card_vs_cpu(default_config().replace(
+        model={"compute_dtype": "float32", "train_VGG": False},
+        train={"on_device_aug": False}), "flags_train32")
+    want_vgg = {"wgmma": 0, "f32": sum(VGG_CLASSES.values())}
+    log(f"[flags_train32] the VGG's K2 launches in the step, by route: "
+        f"{counts['vgg_k2']}")
+    if counts["conv3x3_routes"]["wgmma"] != 0 or counts["vgg_k2"] != want_vgg:
+        raise AssertionError(f"flags_train32: K2 routes "
+                             f"{counts['conv3x3_routes']}, the VGG's "
+                             f"{counts['vgg_k2']} ({want_vgg} expected)")
+
 
 # the corruptions the card's machine can run (it has no cv2)
 def _corruptions_without_cv2():
@@ -2842,9 +3184,9 @@ def phase_score(state):
 
 # ---------------------------------------------------------------- main
 PHASES = (phase_env, phase_kernels, phase_int8, phase_slice32,
-          phase_slice_int8, phase_shipped, phase_shipped_int8, phase_shipped32,
-          phase_train32, phase_train, phase_probe, phase_dataset,
-          phase_corrupt, phase_score)
+          phase_slice_int8, phase_flags32, phase_shipped, phase_shipped_int8,
+          phase_shipped32, phase_flags, phase_train32, phase_flags_train32,
+          phase_train, phase_probe, phase_dataset, phase_corrupt, phase_score)
 
 
 def main(argv=None) -> int:
@@ -2875,7 +3217,9 @@ def main(argv=None) -> int:
     kernels = []
     launches = {"train": state["train_launches"], "serving": state["serve_launches"],
                 "train32": state["train32_launches"],
-                "probe": state["probe_launches"]}
+                "probe": state["probe_launches"],
+                "flags": state["flags_launches"],
+                "flags32": state["flags32_launches"]}
     for name, (src, replaces, run) in KERNELS.items():
         r = state["kernel_times"][(name, RECORD_CASE[name])]
         kernels.append({
@@ -2886,7 +3230,8 @@ def main(argv=None) -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "case": RECORD_CASE[name],
-            **({"yardstick_ms": r["yardstick_ms"]} if "yardstick_ms" in r else {}),
+            **({k: r[k] for k in ("yardstick_ms", "graph_ms", "library_graph_ms")
+                if k in r}),
         })
     # the int8 GEMM: a library call (torch._int_mm), no hand-written kernel
     name, route, src, replaces = INT8_KERNEL

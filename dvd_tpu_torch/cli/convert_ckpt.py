@@ -19,8 +19,9 @@ Kinds encode each file's quirks (reference ``geotr_core.py:1075-1111``,
 
 ``--validate`` loads the converted tree into the port's module through
 the weight bridge (``training/convert.py:load_variables``), which raises
-on a missing, unexpected or mis-shaped leaf.  The port has no VGG16Pyramid
-yet, so ``--validate`` of ``vgg`` raises ``NotImplementedError``.
+on a missing, unexpected or mis-shaped leaf: the DiT-S/2, the whole
+``GeoTrSegInf`` (U2NetP mask and GeoTr), ``Seg``, the line UNet or the
+``VGG16Pyramid``.
 """
 
 from __future__ import annotations
@@ -42,27 +43,27 @@ KINDS = {
 
 
 def port_module(kind: str):
-    """The port's module a converted ``kind`` loads into (the shipped
-    sizes; the parameter shapes do not depend on the image size)."""
+    """The port's module a converted ``kind`` loads into, at the shipped
+    sizes (GeoTr's query bank: 288^2 / 8^2 tokens)."""
     if kind == "dit":
         from dvd_tpu_torch.models.dit import make_dit
 
-        return make_dit("DiT-S/2", input_size=64, tv=True), ()
+        return make_dit("DiT-S/2", input_size=64, tv=True)
     if kind == "seg":
         from dvd_tpu_torch.models.geotr import GeoTrSegInf
 
-        return GeoTrSegInf(), C.SKIP["geotr"]
+        return GeoTrSegInf(full=True)
     if kind == "seg_model":
         from dvd_tpu_torch.models.u2net import Seg
 
-        return Seg(), ()
+        return Seg()
     if kind == "line":
         from dvd_tpu_torch.models.textline_unet import TextLineUNet
 
-        return TextLineUNet(), ()
-    raise NotImplementedError(
-        f"--validate --kind {kind}: VGG16Pyramid is not ported yet "
-        "(ROADMAP.md Queue 1 item 16)")
+        return TextLineUNet()
+    from dvd_tpu_torch.models.vgg import VGG16Pyramid
+
+    return VGG16Pyramid()
 
 
 def convert(kind: str, src: str, dst: str, validate: bool = False) -> dict:
@@ -72,8 +73,8 @@ def convert(kind: str, src: str, dst: str, validate: bool = False) -> dict:
     variables = C.convert_state_dict(C.load_torch_state_dict(src, **load_kw),
                                      rules)
     if validate:
-        module, skip = port_module(kind)
-        C.load_variables(module, variables, skip)
+        module = port_module(kind)
+        C.load_variables(module, variables)
         print(f"validated against the port's {type(module).__name__}")
     save_variables(dst, variables)
     n = sum(v.size for v in C.flatten_tree(variables).values())

@@ -14,10 +14,14 @@ struct Strides {
 
 // Shared-memory layout of a bf16 tile of R rows x DH columns: DH / kCols
 // column blocks, each R rows of kRowBytes, 16-byte chunks swizzled within
-// each 8-row atom as the wgmma descriptors' swizzle mode says.
+// each 8-row atom as the wgmma descriptors' swizzle mode says.  Dh 16 and
+// 32 take blocks of 16 columns (32-byte rows, the 32-byte swizzle): a
+// 32-wide row is two such blocks, each a k16 step of S and an n16 product
+// of P V, so both head dims use the one small-block layout.
 template <int DH>
 struct Layout {
-  static_assert(DH % 64 == 0 || DH == 16, "64-column blocks, or one of 16");
+  static_assert(DH % 64 == 0 || DH == 16 || DH == 32,
+                "64-column blocks, or 16-column ones at Dh 16 and 32");
   static constexpr int kRowBytes = DH >= 64 ? 128 : 32;
   static constexpr int kCols = kRowBytes / 2;  // columns per block
   static constexpr int kChunks = kRowBytes / 16;
@@ -32,7 +36,7 @@ struct Layout {
   }
 };
 
-#define DVD_FOR_EACH_DH(X) X(16) X(64) X(128) X(192) X(256)
+#define DVD_FOR_EACH_DH(X) X(16) X(32) X(64) X(128) X(192) X(256)
 
 #define DVD_D8(i)                                                              \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), \

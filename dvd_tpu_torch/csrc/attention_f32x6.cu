@@ -50,7 +50,8 @@
 //   per tile and normalised once at the end.
 // - O += P V: P, the S accumulator, is already in the register layout of
 //   wgmma's A operand; split in registers into three bf16 fragments, six
-//   wgmmas per k16 step and 64 columns of Dh (m64n16 at Dh 16).
+//   wgmmas per k16 step and 64 columns of Dh (per 16 columns, m64n16, at
+//   Dh 16 and 32: attention.cuh's 16-column blocks).
 // - The sums: the tensor cores truncate as they accumulate, so S's six
 //   products of each k16 step, and P V's of each tile and 64 columns, go
 //   into a fresh tensor-core accumulator that the CUDA cores add to the
@@ -61,6 +62,7 @@
 //     Dh 192: 128 rows, BK 32: 96 + 48 + 72 KB = 217 KB
 //     Dh 128: 128 rows, BK 64: 64 + 64 + 96 KB = 225 KB
 //     Dh 64:  128 rows, BK 64: 32 + 32 + 48 KB = 113 KB
+//     Dh 32:  128 rows, BK 64: 16 + 16 + 24 KB = 57 KB
 //     Dh 16:  128 rows, BK 64: 8 + 8 + 12 KB = 29 KB
 //   The O accumulator is the warpgroup's Dh columns / 2 f32 registers a
 //   thread (96 at Dh 192, 64 at Dh 256); every instance runs one block per
@@ -190,8 +192,8 @@ __global__ void __launch_bounds__(Cfg<DH>::kThreads, 1) attention_f32x6_kernel(
   using C = Cfg<DH>;
   constexpr int kBK = C::kBK, kThreads = C::kThreads;
   constexpr int kChunks = DH / 4;              // 16-byte f32 chunks per row
-  constexpr int kNB = DH >= 64 ? C::kDW / 64 : 1;  // P.V products per k step
-  constexpr int kNO = DH >= 64 ? 32 : 8;       // O registers per product
+  constexpr int kNB = C::kDW / L::kCols;  // P.V products per k step, one a block
+  constexpr int kNO = L::kCols / 2;       // O registers per product (n64 or n16)
   constexpr int kNS = kBK / 2;                 // S registers per thread
   constexpr int kPK = kBK / 16;                // P.V k16 steps per tile
   extern __shared__ uint8_t smem_raw[];
@@ -468,7 +470,7 @@ __global__ void __launch_bounds__(Cfg<DH>::kThreads, 1) attention_f32x6_kernel(
     for (int n = 0; n < kNB; ++n)
 #pragma unroll
       for (int c = 0; c < kNO / 4; ++c)
-        *reinterpret_cast<float2*>(orow + n * 64 + 8 * c) =
+        *reinterpret_cast<float2*>(orow + n * L::kCols + 8 * c) =
             make_float2(acc[n][4 * c + 2 * i] * inv, acc[n][4 * c + 2 * i + 1] * inv);
   }
 }

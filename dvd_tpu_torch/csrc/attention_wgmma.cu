@@ -34,11 +34,13 @@
 // - O += P V: P never touches shared memory.  The S accumulator, cast to
 //   bf16 pairs, is already in the register layout of wgmma's A operand; V
 //   is the B operand in its natural [Tk][Dh] layout (MN-major, transpose
-//   bit set), one m64n64k16 per 64 columns of Dh (m64n16k16 at Dh 16).
+//   bit set), one m64n64k16 per 64 columns of Dh (one m64n16k16 per 16
+//   columns at Dh 16 and 32).
 // - Shared memory is in the swizzle the descriptors name: column blocks of
-//   64 bf16 (128 bytes) in the 128-byte swizzle, or one 32-byte block in the
-//   32-byte swizzle at Dh 16; each block of 8 rows is one swizzle atom.
-//   Dh 256 is four column blocks, 192 three.
+//   64 bf16 (128 bytes) in the 128-byte swizzle, or of 16 bf16 (32 bytes)
+//   in the 32-byte swizzle at Dh 16 and 32 (GeoTr's 8 heads of 32: a
+//   64-byte row is two such blocks); each block of 8 rows is one swizzle
+//   atom.  Dh 256 is four column blocks, 192 three.
 // - Sizes: Q 256*Dh bytes, a ring slot (K + V) 256*Dh bytes; 3 slots for
 //   Dh <= 192, 2 at Dh 256 (64 KB + 128 KB = 192 KB of the 227 KB).  The O
 //   accumulator is Dh/2 f32 registers per thread (128 at Dh 256), so Dh >= 128
@@ -113,8 +115,8 @@ __global__ void __launch_bounds__(kThreads, DH <= 64 ? 2 : 1) attention_wgmma_ke
   using L = Layout<DH>;
   constexpr int kS = stages<DH>();
   constexpr uint32_t kQBytes = kBQ * DH * 2, kTileBytes = kBK * DH * 2;
-  constexpr int kNB = DH >= 64 ? DH / 64 : 1;  // P.V products per k step
-  constexpr int kNO = DH >= 64 ? 32 : 8;       // O registers per product
+  constexpr int kNB = DH / L::kCols;  // P.V products per k step, one a block
+  constexpr int kNO = L::kCols / 2;   // O registers per product (n64 or n16)
   extern __shared__ uint8_t smem_raw[];
   const uint32_t sq = (smem_u32(smem_raw) + 1023) & ~1023u;
   const uint32_t ring = sq + kQBytes;  // slot s: K at ring + 2s tiles, V after it
@@ -231,7 +233,7 @@ __global__ void __launch_bounds__(kThreads, DH <= 64 ? 2 : 1) attention_wgmma_ke
         // exactly one atom's width, so both byte offsets are the atom stride
         const uint64_t bd = make_desc(sv + n * kBK * L::kRowBytes + kk * 16 * L::kRowBytes,
                                       L::kAtom, L::kAtom, L::kMode);
-        if constexpr (DH >= 64)
+        if constexpr (L::kCols == 64)
           wgmma_rs_n64(acc[n], p + 4 * kk, bd);
         else
           wgmma_rs_n16(acc[n], p + 4 * kk, bd);
@@ -259,7 +261,7 @@ __global__ void __launch_bounds__(kThreads, DH <= 64 ? 2 : 1) attention_wgmma_ke
       for (int c = 0; c < kNO / 4; ++c) {
         const __nv_bfloat162 val = __floats2bfloat162_rn(
             acc[n][4 * c + 2 * i] * inv, acc[n][4 * c + 2 * i + 1] * inv);
-        *reinterpret_cast<__nv_bfloat162*>(orow + n * 64 + 8 * c) = val;
+        *reinterpret_cast<__nv_bfloat162*>(orow + n * L::kCols + 8 * c) = val;
       }
   }
 }

@@ -2,12 +2,18 @@
 ``dvd_tpu/evaluation/pipeline.py``).
 
 1. 512^2 source -> 288^2 (align_corners=True) for the perception nets;
-2. GeoTrSegInf mask branch: the soft document mask at 512^2 (``mask_cat``);
+2. GeoTrSegInf: the soft document mask at 512^2 (``mask_cat``), and under
+   ``use_init_flow`` GeoTr's backward map ``ref_bm / (288 - 1)`` resized
+   (align_corners=True) to the latent size as ``init_flow`` (else zeros);
 3. Seg (U2NetP): six decoder side features -> the 384-ch ``mask_y512``
    stream at the latent size, and the hard-masked image;
 4. TextLineUNet over the hard-masked image -> the 64-ch ``line_msk``;
-5. the DiT's conditioning pyramid and the c/m/l patch embedders, hoisted
-   out of the DDIM loop; 3 DDIM steps x n_batch hypotheses;
+5. the image stream: the DiT's private conditioning pyramid, or under
+   ``train_VGG=False`` the frozen VGG16 pyramid's level 3 (``c20_for_dit``,
+   f32); either enters the DiT through its ``src_feat`` bypass, hoisted out
+   of the DDIM loop with the c/m/l patch embedders; 3 DDIM steps x
+   n_batch hypotheses through the DiT in its ``separate_cross_attn`` mode
+   ('para', 'seq' or 'one');
 6. the unwarp: upsample the flow to the page's size and grid_sample with
    ``((flow + base) * 2 - 1) * 0.987``, either at the source's own size
    (``unwarp_fixed``) or for a batch of pages of any native sizes padded
@@ -16,8 +22,9 @@
 Public entry points keep the JAX layout: ``dewarp_flow`` takes
 (B, 512, 512, 3) in [0, 1] and returns (B, S, S, 2); the unwarps take
 NHWC sources and flows.  Inside, images are NCHW.  The kernels sit under
-stages 2-4 and the pyramid (K2), the DiT and SATRN attention (K1), the
-feature re-warp (K3) and both unwarps (the fused unwarp, one launch).
+stages 2-5 (K2; GeoTr's transformer and the DiT's and SATRN's attention
+K1), the feature re-warp (K3) and both unwarps (the fused unwarp, one
+launch).
 Weights are drawn from a seed or loaded from converted files
 (``training/checkpoint.py:maybe_load_pipeline_weights``).
 
@@ -26,9 +33,9 @@ Weights are drawn from a seed or loaded from converted files
 int8 codes are quantized from them, as ``dvd_tpu`` quantizes from its f32
 parameters) while the rest of the DiT is stored in the compute dtype.
 
-Not ported yet (raise ``NotImplementedError``): the VGG conditioning
-(``train_VGG=False``), GeoTr's flow (``use_init_flow``), the alternative
-denoisers and the 'seq'/'one' cross-attention modes.
+Not ported yet (raise ``NotImplementedError``): the alternative
+denoisers (``train_mode`` other than the DiT's) and
+``serve_cond_chunk``.
 """
 
 from __future__ import annotations
@@ -47,6 +54,7 @@ from dvd_tpu_torch.models.geotr import GeoTrSegInf
 from dvd_tpu_torch.models.layers import seeded_init_
 from dvd_tpu_torch.models.textline_unet import TextLineUNet
 from dvd_tpu_torch.models.u2net import Seg, seg_pyramid_to_latent
+from dvd_tpu_torch.models.vgg import VGG16Pyramid, c20_for_dit
 from dvd_tpu_torch.ops.kernels.unwarp import native_grid, unwarp  # noqa: F401
 from dvd_tpu_torch.ops.resize import resize_bilinear
 from dvd_tpu_torch.utils.grids import UNWARP_SHRINK
@@ -60,14 +68,8 @@ def check_config(cfg: DvDConfig) -> None:
     todo = []
     if m.train_mode not in ("stage_1_dit_cross", "stage_1_dit_cat"):
         todo.append(f"train_mode={m.train_mode!r} (alternative denoisers)")
-    if not m.train_VGG:
-        todo.append("train_VGG=False (VGG16 conditioning)")
-    if m.use_init_flow:
-        todo.append("use_init_flow=True (the full GeoTr)")
     if m.quantize not in ("none", "int8"):
         todo.append(f"quantize={m.quantize!r}")
-    if m.separate_cross_attn != "para":
-        todo.append(f"separate_cross_attn={m.separate_cross_attn!r}")
     if m.serve_cond_chunk:
         todo.append("serve_cond_chunk > 0")
     if m.compute_dtype not in DTYPES or m.param_dtype not in DTYPES:
@@ -95,7 +97,9 @@ def _place_dit(dit: DiT, device: torch.device, dtype: torch.dtype) -> None:
 
 @dataclasses.dataclass
 class DewarpPipeline:
-    """The four networks + the schedule, on one device."""
+    """The networks + the schedule, on one device: the DiT, Seg, the line
+    UNet, GeoTrSegInf (with its GeoTr under ``use_init_flow``) and, under
+    ``train_VGG=False``, the VGG16 pyramid."""
 
     cfg: DvDConfig
     dit: DiT
@@ -104,7 +108,8 @@ class DewarpPipeline:
     geotr: GeoTrSegInf
     sched: DiffusionSchedule
     device: torch.device
-    dtype: torch.dtype   # compute dtype of every network
+    dtype: torch.dtype   # compute dtype of every network but the VGG's (f32)
+    vgg: Optional[VGG16Pyramid] = None
 
     @classmethod
     def create(cls, cfg: DvDConfig, device="cuda",
@@ -120,7 +125,11 @@ class DewarpPipeline:
         keeps ``model.param_dtype`` parameters that require gradients (the
         training step computes in ``compute_dtype`` under autocast), and
         drawn weights start its adaLN and final layers at zero, as the
-        reference's training init; the aux nets stay frozen either way."""
+        reference's training init; the aux nets stay frozen either way.
+        GeoTr's transformer is built only under ``use_init_flow`` and the
+        VGG pyramid only under ``train_VGG=False``; their weights are drawn
+        after the other networks', whose drawn weights do not depend on
+        these two flags."""
         check_config(cfg)
         m = cfg.model
         quant = m.quantize == "int8"
@@ -131,12 +140,16 @@ class DewarpPipeline:
                            chain_blocks=m.chain_blocks,
                            with_mask=not m.use_gt_mask,
                            with_line=m.use_line_mask and not m.use_gt_mask,
-                           quant=quant)
+                           quant=quant,
+                           separate_cross_attn=m.separate_cross_attn)
         if dit.quant != quant:
             raise ValueError(f"model.quantize={m.quantize!r} with a DiT "
                              f"built with quant={dit.quant}")
         nets = dict(dit=dit, seg=Seg(m.source_size), line=TextLineUNet(),
-                    geotr=GeoTrSegInf(m.source_size))
+                    geotr=GeoTrSegInf(m.source_size, m.use_init_flow,
+                                      m.perception_size))
+        if not m.train_VGG:
+            nets["vgg"] = VGG16Pyramid()
         if generator is not None:
             for name, net in nets.items():
                 seeded_init_(net, generator, zero_init=train and name == "dit")
@@ -146,14 +159,17 @@ class DewarpPipeline:
                               rescale_timesteps=cfg.diffusion.rescale_timesteps,
                               device=device)
         # frozen (eval, no grad).  For serving the DiT is stored in the
-        # compute dtype, but for its int8 layers' f32 weights; the aux nets
-        # keep f32 weights and cast them, with BN folded, once per weight
-        # set (fold_conv_bn)
+        # compute dtype, but for its int8 layers' f32 weights; the conv
+        # aux nets keep f32 weights and cast them, with BN folded, once per
+        # weight set (fold_conv_bn); GeoTr's transformer is stored in the
+        # compute dtype, as it computes
         dtype = DTYPES[m.compute_dtype]
         _place_dit(nets["dit"], device,
                    DTYPES[m.param_dtype] if train else dtype)
         for net in nets.values():
             net.to(device).eval().requires_grad_(False)
+        if nets["geotr"].GeoTr is not None:
+            nets["geotr"].GeoTr.to(dtype)
         if train:
             nets["dit"].requires_grad_(True)
         return cls(cfg=cfg, sched=sched, device=device, dtype=dtype, **nets)
@@ -168,14 +184,26 @@ class DewarpPipeline:
         x = x.contiguous()
         b = x.shape[0]
         xa = resize_bilinear(x, (per, per), True).to(self.dtype).contiguous()
-        cond = {"y512": x, "mask_cat": self.geotr(xa)}
+        ref_bm, mask_cat = self.geotr(xa)
+        cond = {"y512": x, "mask_cat": mask_cat}
         if not m.use_gt_mask:
             mskx, _, pyramid = self.seg(xa)
             cond["mask_y512"] = seg_pyramid_to_latent(pyramid, s)
             if m.use_line_mask:
                 line_feat, _ = self.line(mskx)
                 cond["line_msk"] = resize_bilinear(line_feat, (s, s), False)
-        init_flow = torch.zeros((b, s, s, 2), device=self.device)
+        if self.vgg is not None:
+            # the frozen VGG16 features in f32 replace the DiT's pyramid
+            # (reference evaluation.py:224-236)
+            cond["src_feat"] = c20_for_dit(self.vgg(x), s)
+        if ref_bm is not None:
+            # GeoTr's coarse offsets seed the residual stream (reference
+            # evaluation.py:176-179: ref_bm / 287, bilinear to the latent)
+            ref_flow = (ref_bm.float() / (per - 1.0)).permute(0, 3, 1, 2)
+            init_flow = resize_bilinear(ref_flow, (s, s), True) \
+                .permute(0, 2, 3, 1).contiguous()
+        else:
+            init_flow = torch.zeros((b, s, s, 2), device=self.device)
         init_feat = torch.zeros((b, 256, s, s), device=self.device)
         return cond, init_flow, init_feat
 
@@ -183,12 +211,14 @@ class DewarpPipeline:
     def _hoist_pyramid(self, cond: Dict) -> Dict:
         """Run the DiT's conditioning pyramid once, outside the DDIM loop,
         and feed it through the ``src_feat`` bypass (its input is constant
-        across steps and hypotheses).  y512/mask_cat are then unused."""
+        across steps and hypotheses); the VGG features are already there
+        under ``train_VGG=False``.  y512/mask_cat are then unused."""
         out = dict(cond)
         y512, mask_cat = out.pop("y512"), out.pop("mask_cat", None)
-        out["src_feat"] = conditioning_pyramid_features(
-            self.dit.pyramid, y512, mask_cat, self.cfg.model.image_size,
-            self.dit.dtype)
+        if "src_feat" not in out:
+            out["src_feat"] = conditioning_pyramid_features(
+                self.dit.pyramid, y512, mask_cat, self.cfg.model.image_size,
+                self.dit.dtype)
         return out
 
     def _hoist_stream_tokens(self, cond: Dict) -> Dict:

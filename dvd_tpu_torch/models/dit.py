@@ -8,9 +8,14 @@ reference ``cross_model.py``).
   features (64);
 - DiT blocks with shared cross-attention applied in parallel ('para')
   against the conditioning streams, each branch then through the shared
-  adaLN-zero self-attention + MLP;
-- streams concatenated channel-wise, fused by the SATRN decoder, then an
-  adaLN final layer with the timestep embedding tiled per stream;
+  adaLN-zero self-attention + MLP; 'para' streams concatenated
+  channel-wise, fused by the SATRN decoder, then an adaLN final layer with
+  the timestep embedding tiled per stream;
+- or (``separate_cross_attn``) one token stream through chained blocks:
+  'seq' cross-attends to the seg-mask, image and text-line streams in turn
+  (``cross_obs_attn``, ``cross_attn``, ``cross_attn_act``), 'one' to the
+  image stream alone; then an adaLN final layer (``final_layer``), no
+  decoder;
 - output ``x + init_flow`` and the conditioning features, which the
   sampler re-warps between DDIM steps.
 
@@ -102,19 +107,35 @@ def conditioning_pyramid_features(pyramid: ConditioningPyramid,
     return feat
 
 
+MODES = ("para", "seq", "one")
+
+
 class DiTBlock(nn.Module):
-    """adaLN-Zero DiT block with shared parallel cross-attention ('para')."""
+    """adaLN-Zero DiT block.  'para': the shared cross-attention against
+    each conditioning stream in parallel, each branch then through the
+    shared self-attention + MLP; 'seq': cross-attention to the seg-mask,
+    image and text-line streams in turn, then the backbone; 'one': to the
+    image stream alone."""
 
     def __init__(self, hidden_size: int, num_heads: int,
-                 mlp_ratio: float = 4.0, quant: bool = False):
+                 mlp_ratio: float = 4.0, quant: bool = False,
+                 mode: str = "para"):
         super().__init__()
+        if mode not in MODES:
+            raise ValueError(f"separate_cross_attn={mode!r}, not in {MODES}")
+        self.mode = mode
         self.adaLN_modulation_1 = nn.Linear(hidden_size, 6 * hidden_size)
         self.cross_attn = CrossAttention(hidden_size, num_heads, quant)
+        if mode == "seq":
+            self.cross_obs_attn = CrossAttention(hidden_size, num_heads, quant)
+            self.cross_attn_act = CrossAttention(hidden_size, num_heads, quant)
         self.attn = SelfAttention(hidden_size, num_heads, quant)
         self.mlp = Mlp(hidden_size, int(hidden_size * mlp_ratio), hidden_size,
                        quant)
 
-    def forward(self, x, t_emb, streams_kv):
+    def forward(self, x, t_emb, cond, msk6=None, msk_line=None, r=None):
+        """The block's output streams: one per conditioning stream given
+        ('para': cond, msk6, msk_line, r, those present), else one."""
         ada = self.adaLN_modulation_1(F.silu(t_emb))
         shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = \
             ada.chunk(6, dim=-1)
@@ -125,9 +146,17 @@ class DiTBlock(nn.Module):
             return xi + gate_mlp[:, None] * self.mlp(
                 modulate(layer_norm(xi), shift_mlp, scale_mlp))
 
-        xq = layer_norm(x)
-        return tuple(backbone(x + self.cross_attn(xq, s, s))
-                     for s in streams_kv)
+        if self.mode == "para":
+            xq = layer_norm(x)
+            return tuple(backbone(x + self.cross_attn(xq, s, s))
+                         for s in (cond, msk6, msk_line, r) if s is not None)
+        if self.mode == "seq":
+            x = x + self.cross_obs_attn(layer_norm(x), msk6, msk6)
+            x = x + self.cross_attn(layer_norm(x), cond, cond)
+            x = x + self.cross_attn_act(layer_norm(x), msk_line, msk_line)
+        else:
+            x = x + self.cross_attn(layer_norm(x), cond, cond)
+        return (backbone(x),)
 
 
 class FinalLayer(nn.Module):
@@ -159,11 +188,17 @@ def unpatchify(x: torch.Tensor, patch: int, channels: int) -> torch.Tensor:
 
 
 class DiT(nn.Module):
-    """DvD conditioning DiT, 'para' cross-attention mode.
+    """DvD conditioning DiT.
 
     ``with_mask`` / ``with_line`` say whether the seg-pyramid and text-line
     streams exist (``use_gt_mask=False`` / ``use_line_mask=True`` in the
-    shipped config); with ``tv`` the recurrent stream makes four."""
+    shipped config); with ``tv`` the recurrent stream makes four.
+    ``separate_cross_attn`` is the blocks' mode: 'para' (the shipped one:
+    the last block's streams fused by the SATRN decoder), 'seq' (needs the
+    seg-mask and text-line streams) or 'one' (chained blocks, one stream,
+    ``final_layer``).  Every embedder exists in every mode, as
+    ``dvd_tpu``'s parameter tree has them; 'seq' and 'one' do not run the
+    ones they do not read."""
 
     def __init__(self, input_size: int = 64, patch_size: int = 2,
                  in_channels: int = 2, hidden_size: int = 384,
@@ -171,12 +206,15 @@ class DiT(nn.Module):
                  time_freq_size: int = 256, tv: bool = True,
                  chain_blocks: bool = False, with_mask: bool = True,
                  with_line: bool = True, dropout: float = 0.1,
-                 quant: bool = False):
+                 quant: bool = False, separate_cross_attn: str = "para"):
         super().__init__()
+        if separate_cross_attn == "seq" and not (with_mask and with_line):
+            raise ValueError("separate_cross_attn='seq' cross-attends to the "
+                             "seg-mask and text-line streams: needs both")
         self.input_size, self.patch_size = input_size, patch_size
         self.in_channels, self.hidden_size = in_channels, hidden_size
         self.depth, self.tv, self.chain_blocks = depth, tv, chain_blocks
-        self.quant = quant
+        self.quant, self.mode = quant, separate_cross_attn
         grid = input_size // patch_size
         self.register_buffer("pos", torch.from_numpy(
             get_2d_sincos_pos_embed(hidden_size, grid))[None], persistent=False)
@@ -193,15 +231,20 @@ class DiT(nn.Module):
             if with_line else None
         for i in range(depth):
             setattr(self, f"blocks_{i}",
-                    DiTBlock(hidden_size, num_heads, mlp_ratio, quant))
-        k = 1 + int(with_mask) + int(with_line) + int(tv)
+                    DiTBlock(hidden_size, num_heads, mlp_ratio, quant,
+                             separate_cross_attn))
+        if separate_cross_attn == "para":
+            k = 1 + int(with_mask) + int(with_line) + int(tv)
+            self.decoder = satrn.Decoder(
+                n_layers=6, n_head=6, d_k=64 * k, d_v=64 * k,
+                d_model=hidden_size * k, n_position=input_size // 2,
+                d_inner=2048, dropout=dropout, quant=quant)
+            self.final_layer2 = FinalLayer(hidden_size * k, patch_size,
+                                           in_channels, n_streams=k)
+        else:
+            k = 1
+            self.final_layer = FinalLayer(hidden_size, patch_size, in_channels)
         self.n_streams = k
-        self.decoder = satrn.Decoder(
-            n_layers=6, n_head=6, d_k=64 * k, d_v=64 * k,
-            d_model=hidden_size * k, n_position=input_size // 2, d_inner=2048,
-            dropout=dropout, quant=quant)
-        self.final_layer2 = FinalLayer(hidden_size * k, patch_size,
-                                       in_channels, n_streams=k)
         for name, layer in self.int8_layers():
             layer.qname = name      # named in int8_dense's shape errors
 
@@ -221,6 +264,12 @@ class DiT(nn.Module):
         return out
 
     @property
+    def final(self) -> FinalLayer:
+        """The output projection: ``final_layer2`` after 'para''s decoder,
+        else ``final_layer``."""
+        return self.final_layer2 if self.mode == "para" else self.final_layer
+
+    @property
     def dtype(self) -> torch.dtype:
         """The compute dtype: autocast's when it is on for the weights'
         device, else the weights' own."""
@@ -235,10 +284,13 @@ class DiT(nn.Module):
 
     def embed_stream_tokens(self, feat=None, mask_y512=None, line_msk=None):
         """The step- and hypothesis-invariant c/m/l tokens, hoisted out of
-        the DDIM loop by serving (``dvd_tpu`` ``embed_stream_tokens``)."""
+        the DDIM loop by serving (``dvd_tpu`` ``embed_stream_tokens``);
+        'one' reads the c tokens alone."""
         out = {}
         if feat is not None:
             out["cond_tokens"] = self.embed("c_embedder", feat)
+        if self.mode == "one":
+            return out
         if mask_y512 is not None:
             out["msk6_tokens"] = self.embed("m_embedder", mask_y512)
         if line_msk is not None:
@@ -279,15 +331,16 @@ class DiT(nn.Module):
                 self.pyramid, y512, mask_cat, self.input_size, dt)
         cond = cond_tokens.to(dt) if cond_tokens is not None \
             else self.embed("c_embedder", feat)
-        streams = [cond]
-        if msk6_tokens is not None:
-            streams.append(msk6_tokens.to(dt))
-        elif mask_y512 is not None:
-            streams.append(self.embed("m_embedder", mask_y512))
-        if line_tokens is not None:
-            streams.append(line_tokens.to(dt))
-        elif line_msk is not None:
-            streams.append(self.embed("l_embedder", line_msk))
+        msk6 = msk_line = r = None
+        if self.mode != "one":     # 'one' reads the image stream alone
+            if msk6_tokens is not None:
+                msk6 = msk6_tokens.to(dt)
+            elif mask_y512 is not None:
+                msk6 = self.embed("m_embedder", mask_y512)
+            if line_tokens is not None:
+                msk_line = line_tokens.to(dt)
+            elif line_msk is not None:
+                msk_line = self.embed("l_embedder", line_msk)
         if self.tv:
             if init_feat is None:
                 init_feat = torch.zeros_like(feat)
@@ -296,23 +349,32 @@ class DiT(nn.Module):
             if seed_init_feat is not None:
                 init_feat = torch.where(seed_init_feat.reshape(-1, 1, 1, 1),
                                         feat, init_feat.to(feat.dtype))
-            r_in = torch.cat([init_flow.permute(0, 3, 1, 2).to(dt),
-                              init_feat.to(dt)], dim=1)
-            streams.append(self.embed("r_embedder", r_in))
+            if self.mode == "para":   # the recurrent stream is para's
+                r_in = torch.cat([init_flow.permute(0, 3, 1, 2).to(dt),
+                                  init_feat.to(dt)], dim=1)
+                r = self.embed("r_embedder", r_in)
 
-        if self.chain_blocks:
+        if self.mode != "para":
+            # one stream through every block in turn
             for i in range(self.depth):
-                outs = getattr(self, f"blocks_{i}")(tokens, t_emb, streams)
-                tokens = sum(outs) / len(outs)
+                (tokens,) = getattr(self, f"blocks_{i}")(
+                    tokens, t_emb, cond, msk6, msk_line)
+            out = self.final_layer(tokens, t_emb)
         else:
-            # dead-block semantics: only the last block's output survives
-            outs = getattr(self, f"blocks_{self.depth - 1}")(
-                tokens, t_emb, streams)
-        fused = torch.cat(outs, dim=-1)                  # (N, T, k*D)
-        n, tt, d = fused.shape
-        g = int(round(tt ** 0.5))
-        dec = self.decoder(fused.reshape(n, g, g, d), train, generator)
-        out = self.final_layer2(dec, t_emb)
+            if self.chain_blocks:
+                for i in range(self.depth):
+                    outs = getattr(self, f"blocks_{i}")(
+                        tokens, t_emb, cond, msk6, msk_line, r)
+                    tokens = sum(outs) / len(outs)
+            else:
+                # dead-block semantics: only the last block's output survives
+                outs = getattr(self, f"blocks_{self.depth - 1}")(
+                    tokens, t_emb, cond, msk6, msk_line, r)
+            fused = torch.cat(outs, dim=-1)                  # (N, T, k*D)
+            n, tt, d = fused.shape
+            g = int(round(tt ** 0.5))
+            dec = self.decoder(fused.reshape(n, g, g, d), train, generator)
+            out = self.final_layer2(dec, t_emb)
         pred = unpatchify(out, self.patch_size, self.in_channels)
         return (at_least_f32(pred) + at_least_f32(init_flow),
                 at_least_f32(feat))

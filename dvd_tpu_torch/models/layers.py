@@ -245,10 +245,27 @@ def conv1x1_f32(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
     return (y + conv.bias.float()[:, None]).reshape(b, -1, h, w).to(x.dtype)
 
 
+def conv_matmul(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """A convolution K2 does not take (GeoTr's 7x7 stem, its stride-2
+    3x3s) as an im2col matmul in x's dtype, with the conv's stride and
+    padding: an f32 one stays f32 on the card whatever
+    ``cudnn.allow_tf32`` says (``cuda.matmul.allow_tf32`` is False by
+    default), as ``conv1x1_f32``."""
+    b, _, h, w = x.shape
+    kh, kw = conv.kernel_size
+    (sh, sw), (ph, pw) = conv.stride, conv.padding
+    cols = F.unfold(x, (kh, kw), padding=(ph, pw), stride=(sh, sw))
+    y = torch.matmul(conv.weight.to(x.dtype).reshape(conv.out_channels, -1),
+                     cols) + conv.bias.to(x.dtype)[:, None]
+    return y.reshape(b, -1, (h + 2 * ph - kh) // sh + 1,
+                     (w + 2 * pw - kw) // sw + 1)
+
+
 # layers that training initialises to zero (the DiT's adaLN-zero gates and
 # final projection): random weights give them N(0, std^2), as the parity
 # tests fill the zero leaves of ``dvd_tpu``'s init
-ZERO_INIT_LAYERS = ("adaLN_modulation_1.", "final_layer2.linear.")
+ZERO_INIT_LAYERS = ("adaLN_modulation_1.", "final_layer2.linear.",
+                    "final_layer.linear.")
 
 
 @torch.no_grad()

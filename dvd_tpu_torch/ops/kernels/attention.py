@@ -6,7 +6,8 @@ tensors go by dtype, both to the tensor cores: bf16 to
 to ``csrc/attention_f32x6.cu`` (``attention.launches_f32``), which keeps
 f32 accuracy with six bf16 products over a three-way bf16 split of each
 operand (the TPU's ``precision=HIGHEST``); ``attention.launches`` counts
-both.  The wrapper reads q/k/v through their (b, h, t) strides, so the
+both, ``attention.launches_by_dh`` by the instance's head dim.  The
+wrapper reads q/k/v through their (b, h, t) strides, so the
 non-contiguous ``split_heads`` views go to the kernel without a copy; the
 last (Dh) dimension must be contiguous.  The kernels' 16-byte async copies
 need each base pointer 16-byte aligned and each stride a multiple of 16
@@ -26,6 +27,7 @@ JAX package computes that backward outside Pallas too).
 from __future__ import annotations
 
 import math
+from collections import Counter
 from typing import Optional
 
 import torch
@@ -34,9 +36,10 @@ from dvd_tpu_torch.ops.kernels import build
 from dvd_tpu_torch.utils.dtypes import at_least_f32
 
 # head dims with a kernel (DVD_FOR_EACH_DH in both sources): the mini
-# test DiT (16), DiT-S/B/L (64), the SATRN decoder over 2-4 streams (64 * k);
-# any other head dim up to 256 is zero-padded to the next (kernel_head_dim)
-HEAD_DIMS = (16, 64, 128, 192, 256)
+# test DiT (16), GeoTr's transformer (8 heads of 32), DiT-S/B/L (64), the
+# SATRN decoder over 2-4 streams (64 * k); any other head dim up to 256 is
+# zero-padded to the next (kernel_head_dim)
+HEAD_DIMS = (16, 32, 64, 128, 192, 256)
 # CUDA entry by dtype
 _ENTRIES = {torch.float32: "dvd_attention_fwd_f32x6",
             torch.bfloat16: "dvd_attention_fwd_wgmma"}
@@ -175,9 +178,13 @@ def _forward(q, k, v, scale: float) -> torch.Tensor:
         attention.launches_wgmma += 1
     else:
         attention.launches_f32 += 1
+    attention.launches_by_dh[dh] += 1
     return out[..., :dh_in] if dh != dh_in else out
 
 
 attention.launches = 0
 attention.launches_wgmma = 0
 attention.launches_f32 = 0
+# launches by the kernel instance's head dim (a padded head dim counts as
+# the instance it runs on)
+attention.launches_by_dh = Counter()

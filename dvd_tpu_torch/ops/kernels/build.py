@@ -182,9 +182,11 @@ def check_launch(kl: KernelLibrary, err: int, name: str) -> None:
 
 
 def stream_ptr(t: torch.Tensor) -> int:
-    """The current CUDA stream, as a raw pointer.  The kernels launch on
-    the current device, so ``t`` must lie on it."""
-    if t.get_device() != torch.cuda.current_device():
+    """The current CUDA stream, as a raw pointer (read without building a
+    ``torch.cuda.Stream`` object: this is on every launch's host path).
+    The kernels launch on the current device, so ``t`` must lie on it."""
+    dev = t.get_device()
+    if dev != torch.cuda.current_device():
         raise ValueError(f"tensor on {t.device}, but the current CUDA device "
                          f"is {torch.cuda.current_device()}")
-    return torch.cuda.current_stream().cuda_stream
+    return torch._C._cuda_getCurrentRawStream(dev)

@@ -10,6 +10,8 @@ probe never gives one).
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from dvd_tpu_torch.ops.kernels import build
@@ -25,33 +27,50 @@ def gather2d_ref(img: torch.Tensor, y: torch.Tensor,
                                                 device=img.device))
 
 
+@functools.lru_cache(maxsize=1)
+def _entry():
+    """The C entry, fetched from the library once."""
+    return build.load_library().lib.dvd_gather2d
+
+
+def _refusal(img: torch.Tensor, y: torch.Tensor, x: torch.Tensor):
+    """Why the kernel does not take these inputs, as the exception to
+    raise, or None when it takes them."""
+    tensors = (img, y, x)
+    if not img.is_cuda or y.device != img.device or x.device != img.device:
+        return ValueError("gather2d: inputs must share one CUDA device (got "
+                          f"{[str(t.device) for t in tensors]})")
+    if img.dtype != torch.float32 or y.dtype != torch.int32 \
+            or x.dtype != torch.int32:
+        return TypeError(f"gather2d: float32 image and int32 indices (got "
+                         f"{img.dtype}, {y.dtype}, {x.dtype})")
+    if img.dim() != 2 or y.dim() != 2 or y.shape != x.shape:
+        return ValueError(
+            f"gather2d: shapes {[tuple(t.shape) for t in tensors]}")
+    if not (img.is_contiguous() and y.is_contiguous() and x.is_contiguous()):
+        return ValueError("gather2d: inputs must be contiguous")
+    return None
+
+
 def gather2d(img: torch.Tensor, y: torch.Tensor,
              x: torch.Tensor) -> torch.Tensor:
     """(H, W) f32 image gathered at (M, N) int32 indices -> (M, N) f32.
-    CPU tensors take the plain twin; CUDA tensors launch K5 or raise."""
+    CPU tensors take the plain twin; CUDA tensors launch K5 or raise.
+    Index planes that are offset views (not 16-byte aligned) take the
+    kernel's scalar path."""
     if img.device.type == "cpu":
         return gather2d_ref(img, y, x)
-    tensors = (img, y, x)
-    if not img.is_cuda or any(t.device != img.device for t in tensors):
-        raise ValueError("gather2d: inputs must share one CUDA device (got "
-                         f"{[str(t.device) for t in tensors]})")
-    if img.dtype != torch.float32 or y.dtype != torch.int32 \
-            or x.dtype != torch.int32:
-        raise TypeError(f"gather2d: float32 image and int32 indices (got "
-                        f"{img.dtype}, {y.dtype}, {x.dtype})")
-    if img.dim() != 2 or y.dim() != 2 or y.shape != x.shape:
-        raise ValueError(f"gather2d: shapes {[tuple(t.shape) for t in tensors]}")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("gather2d: inputs must be contiguous")
+    refusal = _refusal(img, y, x)
+    if refusal is not None:
+        raise refusal
     h, w = img.shape
     out = torch.empty(y.shape, dtype=torch.float32, device=img.device)
     if out.numel() == 0:
         return out
-    kl = build.load_library()
-    err = kl.lib.dvd_gather2d(img.data_ptr(), y.data_ptr(), x.data_ptr(),
-                              out.data_ptr(), h, w, y.numel(),
-                              build.stream_ptr(img))
-    build.check_launch(kl, err, "dvd_gather2d")
+    err = _entry()(img.data_ptr(), y.data_ptr(), x.data_ptr(),
+                   out.data_ptr(), h, w, out.numel(), build.stream_ptr(img))
+    if err:
+        build.check_launch(build.load_library(), err, "dvd_gather2d")
     gather2d.launches += 1
     return out
 

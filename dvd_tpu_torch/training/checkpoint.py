@@ -27,7 +27,7 @@ from typing import Any, Dict, Mapping, Optional
 import torch
 
 from dvd_tpu_torch.training import resample
-from dvd_tpu_torch.training.convert import (SKIP, load_variables as
+from dvd_tpu_torch.training.convert import (load_variables as
                                             load_into_module,
                                             state_dict_to_variables)
 from dvd_tpu_torch.utils.msgpack_io import msgpack_restore, msgpack_serialize
@@ -78,14 +78,17 @@ def maybe_load_pipeline_weights(pipe, cfg) -> Dict[str, bool]:
     the pipeline's networks in place (reference ``local.py:77-80``) and
     return which were loaded, ``{"dit_vars": True, ...}``; networks
     without a file keep their weights.  A file that does not fit its
-    network raises (the bridge's missing/unexpected-key check); GeoTr's
-    transformer subtree, not ported, is skipped."""
+    network raises (the bridge's missing/unexpected-key check).  A
+    ``seg_model_path`` file fills the whole ``GeoTrSegInf`` under
+    ``use_init_flow=True``; without it the mask-only module skips the
+    file's ``GeoTr`` subtree (``GeoTrSegInf.absent_subtrees``).  The VGG
+    pyramid has no path of its own, as in ``dvd_tpu``: it keeps its seeded
+    weights unless a converted file is loaded into ``pipe.vgg``."""
     loaded = {}
     for attr, key, path_field in PIPELINE_WEIGHTS:
         path = weight_file(getattr(cfg.paths, path_field))
         if path is not None:
-            load_into_module(getattr(pipe, attr), load_variables(path),
-                             SKIP.get(attr, ()))
+            load_into_module(getattr(pipe, attr), load_variables(path))
         loaded[key] = path is not None
     return loaded
 

@@ -36,24 +36,16 @@ converter already writes FrozenBatchNorm's layout) and nothing calls it.
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Iterable, List, Mapping, NamedTuple, Optional, Tuple
+from typing import Any, Dict, List, Mapping, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn as nn
 
-# subtrees of a flax variable tree that have no counterpart in the port,
-# by model: GeoTrSegInf's GeoTr transformer is dead in the shipped config
-# (use_init_flow=False) and is not ported yet
-SKIP = {
-    "geotr": ("GeoTr.",),
-}
-
-
 class ConvertReport(NamedTuple):
     missing: List[str]      # state_dict keys the variables did not provide
     unexpected: List[str]   # converted keys the module does not have
-    skipped: List[str]      # flax keys deliberately left out (see SKIP)
+    skipped: List[str]      # flax keys under the module's absent_subtrees
 
 
 def as_tensor(leaf) -> torch.Tensor:
@@ -103,13 +95,13 @@ def flax_leaf_to_torch(key: str, arr: torch.Tensor
     return (f"{path}.{leaf}" if path else leaf), arr.contiguous()
 
 
-def variables_to_state_dict(variables: Mapping, module: nn.Module,
-                            skip: Iterable[str] = ()
+def variables_to_state_dict(variables: Mapping, module: nn.Module
                             ) -> Tuple[Dict[str, torch.Tensor], ConvertReport]:
     """Flax variables -> a state_dict for ``module`` (dtypes follow the
-    module) and a report of missing, unexpected and skipped keys.  Shape
-    mismatches raise."""
-    skip = tuple(skip)
+    module) and a report of missing, unexpected and skipped keys.  Keys
+    under the module's ``absent_subtrees`` (the mask-only
+    ``GeoTrSegInf``'s ``GeoTr.``) are skipped.  Shape mismatches raise."""
+    skip = tuple(getattr(module, "absent_subtrees", ()))
     target = module.state_dict()
     sd: Dict[str, torch.Tensor] = {}
     unexpected, skipped = [], []
@@ -129,11 +121,10 @@ def variables_to_state_dict(variables: Mapping, module: nn.Module,
     return sd, ConvertReport(missing, unexpected, skipped)
 
 
-def load_variables(module: nn.Module, variables: Mapping,
-                   skip: Iterable[str] = ()) -> ConvertReport:
+def load_variables(module: nn.Module, variables: Mapping) -> ConvertReport:
     """Convert and load; raises unless every module key is provided and
     every converted key is used (deliberate skips are reported)."""
-    sd, report = variables_to_state_dict(variables, module, skip)
+    sd, report = variables_to_state_dict(variables, module)
     if report.missing or report.unexpected:
         raise ValueError(f"weight bridge: missing {report.missing[:8]} "
                          f"unexpected {report.unexpected[:8]}")

@@ -3,7 +3,10 @@ checkpoints and metrics (port of ``dvd_tpu/training/train_loop.py``;
 reference ``TrainLoop.run_loop_dewarping``, ``train_util.py:211-344``).
 
 - the frozen Seg + line-UNet conditioning is computed on the device per
-  batch, without gradient, through K2 (``:275-293``);
+  batch, without gradient, through K2 (``:275-293``), and under
+  ``train_VGG=False`` the frozen VGG16 features that replace the DiT's
+  pyramid (``:296-304``); ``use_init_flow`` changes nothing in training,
+  as in ``dvd_tpu`` (the step starts from a zero ``init_flow``);
 - GT flows are normalised by ``size - 1`` and the latent target resized to
   64^2 (``:306-312``);
 - logging every ``log_interval`` with per-quartile loss keys, checkpoints
@@ -36,6 +39,7 @@ from dvd_tpu_torch.config import DvDConfig
 from dvd_tpu_torch.data.device_aug import augment_batch, jitter_factors
 from dvd_tpu_torch.evaluation.pipeline import DewarpPipeline
 from dvd_tpu_torch.models.u2net import seg_pyramid_to_latent
+from dvd_tpu_torch.models.vgg import c20_for_dit
 from dvd_tpu_torch.ops.resize import resize_bilinear
 from dvd_tpu_torch.training import checkpoint as ckpt
 from dvd_tpu_torch.training.train_state import (TrainState, create_train_state,
@@ -54,7 +58,8 @@ def build_device_batch(pipe: DewarpPipeline, raw: Dict[str, torch.Tensor],
 
     Streams follow the reference's flags (``train_util.py:275-304``): with
     ``use_gt_mask`` neither the seg pyramid nor the line stream is made;
-    the line stream also needs ``use_line_mask``."""
+    the line stream also needs ``use_line_mask``; ``train_VGG=False`` adds
+    the VGG features as ``src_feat`` (f32, from the f32 source)."""
     m = pipe.cfg.model
     src = raw["source_image"]
     if src.dtype == torch.uint8:
@@ -86,6 +91,8 @@ def build_device_batch(pipe: DewarpPipeline, raw: Dict[str, torch.Tensor],
             line_feat, _ = pipe.line(mskx)
             batch["line_msk"] = resize_bilinear(line_feat, (latent, latent),
                                                 False)
+    if pipe.vgg is not None:
+        batch["src_feat"] = c20_for_dit(pipe.vgg(y512), latent)
     return batch
 
 

@@ -18,7 +18,8 @@ How the step follows the JAX one:
   ``batch_stats``;
 - the DiT's conditioning pyramid is computed once per step with gradient;
   the rollout uses it without gradient, so only the supervised call
-  carries its gradient;
+  carries its gradient; under ``train_VGG=False`` the batch's frozen VGG
+  features (``src_feat``) take its place and the pyramid gets none;
 - gradients are scaled by the mean sampler weight before clipping;
   parameters that received no gradient (the dead DiT blocks) get zeros,
   so Adam leaves them unchanged and EMA still runs over them.
@@ -40,7 +41,7 @@ from dvd_tpu_torch.models.dit import DiT, conditioning_pyramid_features
 from dvd_tpu_torch.models.layers import commit_batch_stats
 from dvd_tpu_torch.training import resample
 
-COND_KEYS = ("y512", "mask_cat", "mask_y512", "line_msk")
+COND_KEYS = ("y512", "mask_cat", "mask_y512", "line_msk", "src_feat")
 
 
 def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
@@ -150,6 +151,7 @@ def make_train_step(cfg: DvDConfig, sched: DiffusionSchedule,
       mask_cat   (B, 1, 512, 512)  document mask
       mask_y512  (B, 384, S, S)    seg pyramid conditioning (if present)
       line_msk   (B, 64, S, S)     text-line conditioning (if present)
+      src_feat   (B, 256, S, S)    VGG features (train_VGG=False only)
       flow64     (B, S, S, 2)      GT offsets at latent res
       flow_inter (B, 512, 512, 2)  intermediate offsets
       mask       (B, 512, 512, 1)  loss mask
@@ -188,12 +190,13 @@ def make_train_step(cfg: DvDConfig, sched: DiffusionSchedule,
                            generator=generator)
 
         cond = {k: batch[k] for k in COND_KEYS if k in batch}
-        # the pyramid's input is the same for the rollout's calls and the
-        # supervised one: compute it once, with gradient
-        with autocast(dev):
-            cond["src_feat"] = conditioning_pyramid_features(
-                dit.pyramid, batch["y512"], batch.get("mask_cat"), s,
-                dit.dtype)
+        if "src_feat" not in cond:
+            # the pyramid's input is the same for the rollout's calls and
+            # the supervised one: compute it once, with gradient
+            with autocast(dev):
+                cond["src_feat"] = conditioning_pyramid_features(
+                    dit.pyramid, batch["y512"], batch.get("mask_cat"), s,
+                    dit.dtype)
         b = batch["flow64"].shape[0]
         init_flow = torch.zeros((b, s, s, 2), device=dev)
         init_feat = torch.zeros((b, 256, s, s), device=dev)

@@ -37,9 +37,9 @@ def fill_zero_leaves(tree, seed: int, std: float = 0.02):
     return walk(tree)
 
 
-def port(module: torch.nn.Module, variables, skip=()):
+def port(module: torch.nn.Module, variables):
     """Load flax ``variables`` into the port ``module`` (eval mode)."""
-    load_variables(module, variables, skip)
+    load_variables(module, variables)
     return module.eval()
 
 

@@ -155,8 +155,9 @@ def test_convert_cli_writes_dvd_tpus_file(tmp_path, kind, family):
 
 
 def test_convert_cli_validate_refuses(tmp_path):
-    """--validate raises on a tree that does not fit the port's module,
-    and for vgg, whose module is not ported."""
+    """--validate raises on a tree that does not fit the port's module:
+    an unexpected leaf (line), and leaves of the wrong shapes (the small
+    vgg16 layout, against the port's VGG16Pyramid); nothing is written."""
     sd, _ = reference_state_dict("line")
     sd["outc.conv.extra.weight"] = np.zeros((2, 2), np.float32)
     src = tmp_path / "ref.pth"
@@ -168,7 +169,8 @@ def test_convert_cli_validate_refuses(tmp_path):
     vsd, _ = reference_state_dict("vgg16")
     torch.save({k: torch.from_numpy(v) for k, v in vsd.items()},
                tmp_path / "vgg.pth")
-    with pytest.raises(NotImplementedError, match="VGG16"):
+    with pytest.raises(ValueError, match="shape"):
         cli.convert("vgg", str(tmp_path / "vgg.pth"),
                     str(tmp_path / "v.msgpack"), validate=True)
     assert not (tmp_path / "x.msgpack").exists()
+    assert not (tmp_path / "v.msgpack").exists()

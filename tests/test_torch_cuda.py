@@ -381,6 +381,21 @@ def test_gather2d_kernel(dev, hw, mn):
         gather2d(torch.randn(4, 6, device=dev)[:, ::2], y, x)
 
 
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+def test_gather2d_vector_tail_and_offset_views(dev, offset):
+    """K5's four-a-thread path with its MN % 4 tail (offset 0) and its
+    scalar path for index planes 4-12 bytes off a 16-byte boundary equal
+    the twin bit for bit."""
+    g = _gen()
+    img = torch.randn((50, 70), generator=g).to(dev)
+    m, n = 37, 101                      # 3737 = 4 * 934 + 1
+    y, x = (torch.randint(-3, 75, (m * n + offset,), generator=g,
+                          dtype=torch.int32).to(dev)[offset:].view(m, n)
+            for _ in range(2))
+    assert x.is_contiguous() and y.data_ptr() % 16 == 4 * offset
+    assert torch.equal(gather2d(img, y, x), gather2d_ref(img, y, x))
+
+
 @pytest.mark.parametrize("tf32", [False, True])
 def test_unwarp_native_on_the_card(dev, tf32):
     """unwarp_native through K3 against the CPU (twin): two pages of

@@ -28,7 +28,7 @@ from dvd_tpu_torch.config import default_config
 from dvd_tpu_torch.data.benchmark import BenchmarkDataset
 from dvd_tpu_torch.evaluation import driver
 from dvd_tpu_torch.evaluation.pipeline import DewarpPipeline
-from dvd_tpu_torch.training.convert import SKIP, load_variables
+from dvd_tpu_torch.training.convert import load_variables
 from test_torch_common import (MINI_DIT, S, SRC, TINY_MODEL, fill_zero_leaves,
                                mask_margin_shift, np_tree, port, t)
 
@@ -83,7 +83,7 @@ def runs(tmp_path_factory):
     port(pipe.dit, jp.dit_vars)
     port(pipe.seg, jp.seg_vars)
     port(pipe.line, jp.line_vars)
-    load_variables(pipe.geotr, jp.geotr_vars, SKIP["geotr"])
+    load_variables(pipe.geotr, jp.geotr_vars)
     sampling = pipe.sampling_impl
     pipe.sampling_impl = lambda cond, f, feat, gen=None: sampling(
         cond, f, feat, init_noise=t(noise))

@@ -32,7 +32,9 @@ ATTENTION_CASES = [
     ((1, 2, 40, 64), 96, 1 / 8),       # Tq != Tk (Tk a multiple of 8, as
                                        # the Pallas kernel asserts)
     ((1, 2, 48, 72), 48, None),        # DiT-XL heads (Dh 72, padded to 128
-]                                      # by both kernels)
+                                       # by both kernels)
+    ((1, 8, 64, 32), 72, None),        # GeoTr heads (8 of Dh 32), Tq != Tk
+]
 
 
 @pytest.mark.parametrize("shape_q,tk,scale", ATTENTION_CASES)

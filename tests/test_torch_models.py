@@ -23,7 +23,7 @@ from dvd_tpu.models import u2net as ju2net
 from dvd_tpu.training import convert as jconvert
 from dvd_tpu_torch.models import dit, geotr, layers, satrn, textline_unet, u2net
 from dvd_tpu_torch.ops.kernels.conv3x3 import k_major_weights
-from dvd_tpu_torch.training.convert import SKIP, variables_to_state_dict
+from dvd_tpu_torch.training.convert import variables_to_state_dict
 from test_torch_common import (fill_zero_leaves, mask_margin_shift, nchw,
                                nhwc, np_tree, port, t)
 
@@ -187,13 +187,15 @@ def test_seg_and_geotr_mask_branch():
     x64 = np.random.RandomState(4).rand(1, 64, 64, 3).astype(np.float32)
     _, want_mask = gmod.apply(gv, jnp.asarray(x64))
     net = geotr.GeoTrSegInf(64)
-    sd, report = variables_to_state_dict(gv, net, SKIP["geotr"])
+    sd, report = variables_to_state_dict(gv, net)
     assert not report.missing and not report.unexpected
     assert report.skipped and all(k.startswith("GeoTr.")
                                   for k in report.skipped)
     net.load_state_dict(sd)
     with torch.no_grad():
-        _close(nhwc(net(nchw(x64))), want_mask, 2e-4)
+        bm, mask = net(nchw(x64))
+    assert bm is None     # the mask branch alone
+    _close(nhwc(mask), want_mask, 2e-4)
 
 
 def test_textline_unet_matches_flax():

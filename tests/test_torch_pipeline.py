@@ -22,7 +22,7 @@ from dvd_tpu_torch.cli.run_sampling import (build_pipeline, dewarp_image,
                                             resize_like_pil)
 from dvd_tpu_torch.evaluation.pipeline import DewarpPipeline, unwarp_fixed
 from dvd_tpu_torch.models.dit import DiT
-from dvd_tpu_torch.training.convert import SKIP, load_variables
+from dvd_tpu_torch.training.convert import load_variables
 from test_torch_common import (fill_zero_leaves, mask_margin_shift, nchw,
                                nhwc, np_tree, port, t)
 
@@ -71,7 +71,7 @@ def pair():
     port(pipe.dit, dit_vars)
     port(pipe.seg, seg_vars)
     port(pipe.line, line_vars)
-    load_variables(pipe.geotr, geotr_vars, SKIP["geotr"])
+    load_variables(pipe.geotr, geotr_vars)
     return pipe, src, noise, want
 
 
@@ -130,9 +130,11 @@ def test_unwarp_fixed_any_size():
 
 
 @pytest.mark.parametrize("override", [
-    {"model": {"serve_cond_chunk": 2}}, {"model": {"use_init_flow": True}},
-    {"model": {"train_VGG": False}}, {"model": {"train_mode": "stage_1"}},
-    {"model": {"separate_cross_attn": "seq"}}])
+    {"model": {"serve_cond_chunk": 2}},
+    {"model": {"train_mode": "stage_1_doctr"}},
+    {"model": {"compute_dtype": "float16"}},
+    {"model": {"train_mode": "stage_1"}},
+    {"model": {"train_mode": "stage_1_transformer"}}])
 def test_unported_flags_raise(override):
     with pytest.raises(NotImplementedError):
         DewarpPipeline.create(tiny_config().replace(**override))

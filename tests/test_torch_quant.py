@@ -463,14 +463,14 @@ def int8_pair():
 
 def _port_int8_pipeline(pair, compute_dtype):
     from dvd_tpu_torch.evaluation.pipeline import DewarpPipeline
-    from dvd_tpu_torch.training.convert import SKIP, load_variables
+    from dvd_tpu_torch.training.convert import load_variables
 
     w = pair["vars"]
     pipe = DewarpPipeline.create(_int8_cfg(compute_dtype), "cpu",
                                  dit=dit.DiT(**MINI_DIT, quant=True))
     for net in ("dit", "seg", "line"):
         port(getattr(pipe, net), w[net])
-    load_variables(pipe.geotr, w["geotr"], SKIP["geotr"])
+    load_variables(pipe.geotr, w["geotr"])
     return pipe
 
 

@@ -20,13 +20,14 @@ from dvd_tpu.models.geotr import GeoTrSegInf as JGeoTrSegInf
 from dvd_tpu.models.textline_unet import TextLineUNet as JTextLineUNet
 from dvd_tpu.models.u2net import Seg as JSeg
 from dvd_tpu.models.u2net import U2NetP as JU2NetP
+from dvd_tpu.models.vgg import VGG16Pyramid as JVGG16Pyramid
 from dvd_tpu.ops.resize import resize_bilinear as j_resize
 from dvd_tpu.training import checkpoint as jckpt
 from dvd_tpu_torch.cli.run_sampling import build_pipeline
 from dvd_tpu_torch.config import default_config
-from dvd_tpu_torch.models import geotr, layers, textline_unet, u2net
+from dvd_tpu_torch.models import geotr, layers, textline_unet, u2net, vgg
 from dvd_tpu_torch.training import checkpoint as ckpt
-from dvd_tpu_torch.training.convert import (SKIP, load_variables,
+from dvd_tpu_torch.training.convert import (load_variables,
                                             state_dict_to_variables,
                                             validate_against)
 from dvd_tpu_torch.training.train_state import create_train_state
@@ -49,11 +50,19 @@ def _modules():
                  ()),
         "geotr": (lambda: geotr.GeoTrSegInf(64),
                   lambda: random_variables(JGeoTrSegInf(mask_size=64),
-                                           z((1, 64, 64, 3))), SKIP["geotr"]),
+                                           z((1, 64, 64, 3))), ("GeoTr",)),
+        "geotr_full": (lambda: geotr.GeoTrSegInf(64, full=True,
+                                                 image_size=64),
+                       lambda: random_variables(JGeoTrSegInf(mask_size=64),
+                                                z((1, 64, 64, 3))), ()),
+        "vgg": (vgg.VGG16Pyramid,
+                lambda: random_variables(JVGG16Pyramid(), z((1, 32, 32, 3))),
+                ()),
     }
 
 
-@pytest.mark.parametrize("name", ["dit", "seg", "line", "geotr"])
+@pytest.mark.parametrize("name", ["dit", "seg", "line", "geotr", "geotr_full",
+                                  "vgg"])
 def test_state_dict_to_variables_round_trips(name):
     """state_dict -> variables (the flax tree's structure and shapes) ->
     load_variables into a fresh module: every leaf back bit for bit, in
@@ -62,9 +71,10 @@ def test_state_dict_to_variables_round_trips(name):
     src = layers.seeded_init_(make(), torch.Generator().manual_seed(9))
     variables = state_dict_to_variables(src.state_dict())
     want = flax_vars()
-    if skip:        # the port has no GeoTr transformer
-        want["params"] = {k: v for k, v in want["params"].items()
-                          if k != "GeoTr"}
+    # subtrees the port's module does not hold (the mask-only GeoTrSegInf
+    # has no GeoTr transformer)
+    want["params"] = {k: v for k, v in want["params"].items()
+                      if k not in skip}
     for coll in ("params", "batch_stats"):
         assert validate_against(variables, want, coll) == []
     for dtype in (torch.float32, torch.bfloat16):
