@@ -22,8 +22,14 @@ exits non-zero -- nothing is caught):
             twin's max error against float64, the kernel's within 4x the
             twin's or 2^-20 of max|ref|; K1 a ragged case, DiT-XL's
             head dim 72, zero-padded to 128, and GeoTr's (4, 8, 1296, 32)
-            in both dtypes, also against float64; K2 f32 at the VGG16
+            in both dtypes, also against float64; K1 at the alternative
+            denoisers' (8, 4, 4096, 32), (8, 8, 1024, 32), (8, 4, 256, 96)
+            (zero-padded to 128) and (8, 4, 64, 128) in both dtypes,
+            against float64 and timed from Python and from CUDA graphs
+            beside SDPA; K2 f32 at the VGG16
             pyramid's seven classes and bf16 at GeoTr's stride-1 classes,
+            and in both dtypes at the UNet denoiser's 22 and GeoTr2's 5
+            classes at batch 8,
             summed from CUDA graphs beside ``conv2d``; K2 bf16 at every
             shape class of the
             serving and training paths, batches 4 and 10; K3 through both
@@ -61,6 +67,17 @@ exits non-zero -- nothing is caught):
             modes: card against CPU under slice32's bars, every K1 and K2
             launch on the f32 route, GeoTr's 24 K1 launches on the Dh 32
             instance, init_flow's range.
+3d. alt32  the alternative denoisers (``stage_1`` UNet,
+            ``stage_1_transformer``, ``stage_1_doctr`` GeoTr2, and GeoTr2
+            under ``use_init_flow``) at the registry's full width, f32,
+            batch 1, one hypothesis, 512^2, ``train_VGG=False``: card
+            against CPU from one weight set (the zero-initialised layers
+            drawn small) and one pinned x_T, flow within slice32's bar of
+            max|ref| and the unwarped image within its bar; K1 counted by
+            the caller's head dim (the UNet's Dh 96 on the padded route,
+            Dh 128, Dh 32) and K2, each as the code counts them, every
+            launch on the f32 route, no K3 re-warp (the families sample
+            without the recurrent state, as ``dvd_tpu`` does).
 3b. slice_int8  slice32 with ``quantize="int8"``: card against CPU, the
             int8 products counted (the code's count: each int8 layer of
             the live block once per stream and each of the decoder's once,
@@ -101,6 +118,13 @@ exits non-zero -- nothing is caught):
             the Dh 32 wgmma instance, the VGG's 7 K2 launches in f32, the
             rest bf16), outputs, imgs/s, ms by stage with GeoTr and the VGG
             pyramid timed alone, one profiled run.
+4e. alt     each alt32 family served in bf16 at batch 4, 3 DDIM steps x
+            2 hypotheses, 512^2: launches and routes (every K1 and K2
+            launch wgmma but the VGG's 7 f32 ones), K2's shape classes,
+            outputs, imgs/s, ms by stage and one profiled run; then the
+            CLI's single-image functions under ``--set
+            model.train_mode=stage_1 --set model.train_VGG=False`` on a
+            600x450 page (the card's machine has no PIL for ``--image``).
 5. train32  one f32 train step of the shipped training config at full
             DiT-S/2 width, batch 2, 512^2: its loss and every gradient on
             the card through the kernels (K1-K4 launch counts must all be
@@ -109,6 +133,10 @@ exits non-zero -- nothing is caught):
             dropout off.
 5b. flags_train32  train32 under ``train_VGG=False`` (the VGG16
             features in place of the DiT's pyramid).
+5c. alt_train32  one f32 train step (``plain_masked_mse``) of each
+            alternative family at full width, batch 2, 512^2: loss and
+            every gradient card against CPU under train32's bars, K1 and
+            K2 launched, every K2 launch f32.
 6. train    the shipped training config (bf16 compute, f32 parameters,
             batch 10, 512^2, time-variant loss with its rollout, the
             on-device augmentation) through ``training.train_loop.train``,
@@ -157,8 +185,9 @@ route, each with the launches of the run that drives it: K1-K4 from the
 training run, the augmentation's K3 launches included, the fused unwarp
 from the serving run, the f32 routes from train32, K1's Dh 32 instances
 from flags (bf16) and flags32 (f32), K2 f32 at the VGG classes from
-flags32, K5 from the probe; and the int8 GEMM, a library route, from the
-int8 serving run);
+flags32, the alternative denoisers' K1 and K2 instances from alt (bf16)
+and alt32 (f32), K5 from the probe; and the int8 GEMM, a library route,
+from the int8 serving run);
 the last line is ``{"ok": true, "device":
 {...}}``.  Without a CUDA device the script raises before printing any
 result.
@@ -229,6 +258,26 @@ RECORD_CASE = {
     # GeoTr's attention (use_init_flow): 8 heads of 32 over 36^2 tokens
     "attention_dh32": "(4, 8, 1296, 32) scale 0.176777 bfloat16",
     "attention_f32_dh32": "(4, 8, 1296, 32) scale 0.176777 float32",
+    # the alternative denoisers' attention: the transformer's 4096 tokens
+    # and GeoTr2's 1024 at Dh 32, the UNet's Dh 96 (zero-padded to 128)
+    # and Dh 128, at the serving batch of 4 pages x 2 hypotheses
+    "attention_alt": "(8, 4, 4096, 32) scale 0.176777 bfloat16",
+    "attention_f32_alt": "(8, 4, 4096, 32) scale 0.176777 float32",
+    "attention_geotr2": "(8, 8, 1024, 32) scale 0.176777 bfloat16",
+    "attention_f32_geotr2": "(8, 8, 1024, 32) scale 0.176777 float32",
+    "attention_dh96": "(8, 4, 256, 96) scale 0.102062 bfloat16",
+    "attention_f32_dh96": "(8, 4, 256, 96) scale 0.102062 float32",
+    "attention_dh128": "(8, 4, 64, 128) scale 0.0883883 bfloat16",
+    "attention_f32_dh128": "(8, 4, 64, 128) scale 0.0883883 float32",
+    # the alternative denoisers' stride-1 3x3 convs at batch 8, summed
+    "conv3x3_unet": "the UNet's 22 classes, 68->128 @64^2 .. 1024->512 "
+                    "@8^2, 195 launches, b8 bfloat16, summed from CUDA graphs",
+    "conv3x3_f32_unet": "the UNet's 22 classes, 195 launches, b8 float32, "
+                        "summed from CUDA graphs",
+    "conv3x3_geotr2": "GeoTr2's 5 classes, 68->64 @64^2 .. 256->2 @32^2, 30 "
+                      "launches, b8 bfloat16, summed from CUDA graphs",
+    "conv3x3_f32_geotr2": "GeoTr2's 5 classes, 30 launches, b8 float32, "
+                          "summed from CUDA graphs",
     # the VGG16 pyramid's seven convs (train_VGG=False), summed
     "conv3x3_f32_vgg": "VGG16's 7 classes, 3->64 @512^2 .. 256->256 @128^2, "
                        "b4 float32, summed from CUDA graphs",
@@ -259,6 +308,22 @@ KERNELS = {
                        "dvd_tpu/ops/pallas/attention.py:49", "flags"),
     "attention_f32_dh32": ("dvd_tpu_torch/csrc/attention_f32x6.cu",
                            "dvd_tpu/ops/pallas/attention.py:49", "flags32"),
+    # the alternative denoisers' instances: launches from the bf16 serving
+    # run (alt) and the f32 one (alt32) of the family that runs them
+    **{name: ("dvd_tpu_torch/csrc/attention_" + ("f32x6" if "f32" in name
+                                                 else "wgmma") + ".cu",
+              "dvd_tpu/ops/pallas/attention.py:49",
+              "alt32" if "f32" in name else "alt")
+       for name in ("attention_alt", "attention_f32_alt", "attention_geotr2",
+                    "attention_f32_geotr2", "attention_dh96",
+                    "attention_f32_dh96", "attention_dh128",
+                    "attention_f32_dh128")},
+    **{name: ("dvd_tpu_torch/csrc/conv3x3_" + ("f32x6" if "f32" in name
+                                               else "wgmma") + ".cu",
+              "dvd_tpu/ops/pallas/planar_conv.py:247",
+              "alt32" if "f32" in name else "alt")
+       for name in ("conv3x3_unet", "conv3x3_f32_unet", "conv3x3_geotr2",
+                    "conv3x3_f32_geotr2")},
     "conv3x3": ("dvd_tpu_torch/csrc/conv3x3_wgmma.cu",
                 "dvd_tpu/ops/pallas/planar_conv.py:247", "train"),
     "conv3x3_f32": ("dvd_tpu_torch/csrc/conv3x3_f32x6.cu",
@@ -770,9 +835,9 @@ def phase_kernels(state):
         aims = {}
         both = (torch.float32, bf16)
         # (shape, scale, dtypes, aim, q/k/v builder, record key suffix,
-        # GeoTr's: the bf16 kernel also held against float64, and timed
-        # from CUDA graphs too, since its launches are small)
-        for shape, scale, dts, aim, make_qkv, suffix, geotr in (
+        # graph: the bf16 kernel also held against float64, and timed from
+        # CUDA graphs too, since its launches are small)
+        for shape, scale, dts, aim, make_qkv, suffix, graph in (
                 ((8, 6, 1024, 64), 1 / 8, both, 3.0, _qkv, "", False),
                 ((8, 6, 1024, 256), 1 / 16, both, 2.0, _qkv, "", False),
                 ((8, 16, 1024, 72), 1 / math.sqrt(72), both, 0.0, _qkv, "",
@@ -783,7 +848,19 @@ def phase_kernels(state):
                 # ragged against every block size; q, k and v the
                 # split_heads views of three (B, T, 256) projections
                 ((4, 8, 1296, 32), 1 / math.sqrt(32), both, 0.0,
-                 _qkv_separate, "_dh32", True)):
+                 _qkv_separate, "_dh32", True),
+                # the alternative denoisers at the serving batch (4 pages x
+                # 2 hypotheses): the transformer's and GeoTr2's separate
+                # projections at Dh 32, the UNet's fused qkv at Dh 96
+                # (zero-padded to 128; its bound is the Dh 96 work) and 128
+                ((8, 4, 4096, 32), 1 / math.sqrt(32), both, 0.0,
+                 _qkv_separate, "_alt", True),
+                ((8, 8, 1024, 32), 1 / math.sqrt(32), both, 0.0,
+                 _qkv_separate, "_geotr2", True),
+                ((8, 4, 256, 96), 1 / math.sqrt(96), both, 0.0, _qkv,
+                 "_dh96", True),
+                ((8, 4, 64, 128), 1 / math.sqrt(128), both, 0.0, _qkv,
+                 "_dh128", True)):
             for dt in dts:
                 q, k, v = make_qkv(*shape, dt, gen, dev)
                 before = routes("attention")
@@ -799,14 +876,14 @@ def phase_kernels(state):
                                                    want, bar))
                 if route != {"wgmma": int(dt == bf16), "f32": int(dt != bf16)}:
                     raise AssertionError(f"K1 {case} took the routes {route}")
-                if dt == torch.float32 or geotr:
+                if dt == torch.float32 or graph:
                     # (the bf16 kernel against its bf16 twin, both from
                     # float64)
                     _vs_f64(case, got, want, attention_ref(
                         q.double(), k.double(), v.double(), scale),
-                        case in (RECORD_CASE["attention_f32"],
-                                 RECORD_CASE["attention_f32_dh32"],
-                                 RECORD_CASE["attention_dh32"]))
+                        case in {RECORD_CASE[r] for r in RECORD_CASE
+                                 if r.startswith("attention")
+                                 and r != "attention"})
                 if aim is not None:  # timed in both dtypes; the aim is bf16's
                     if dt == bf16 and aim:
                         aims[case] = aim
@@ -817,7 +894,7 @@ def phase_kernels(state):
                             lambda: attention(q, k, v, scale),
                             lambda: attention_ref(q, k, v, scale), library,
                             _nbytes(q, k, v, got), 4 * b * h * tq * tq * dh, dt)
-                    if geotr:
+                    if graph:
                         times[(key, case)].update(
                             graph_ms=cuda_graph_ms(
                                 lambda: attention(q, k, v, scale)),
@@ -894,6 +971,20 @@ def phase_kernels(state):
         geotr = _time_conv_classes(Counter(GEOTR_CLASSES), state["label"],
                                    "kernels", bf16)
         errs["conv3x3"] = max(errs["conv3x3"], geotr["max_err"])
+        # the alternative denoisers' stride-1 convs at the serving batch,
+        # in both dtypes, the same way
+        for family, classes in (("unet", UNET_CLASSES),
+                                ("geotr2", GEOTR2_CLASSES)):
+            for dt in (bf16, torch.float32):
+                key = f"conv3x3{'_f32' if dt == torch.float32 else ''}_{family}"
+                r = _time_conv_classes(Counter(classes), state["label"],
+                                       f"kernels {family}", dt)
+                times[(key, RECORD_CASE[key])] = dict(
+                    ms=r["kernel"], plain_ms=r["plain"],
+                    library_ms=r["conv2d"], bound_ms=r["bound"],
+                    bound_by="bytes" if 2 * r["bytes"] >= r["bound"]
+                    else "operations")
+                errs[key] = r["max_err"]
 
         log("[kernels] K3 gather_bilinear (N, C, H, W) at a smooth flow grid: "
             "the [-1, 1] grid entry (the main path's), then the pixel-plane "
@@ -1169,6 +1260,7 @@ def reset_launches() -> None:
     for name in ROUTED:
         fns[name].launches_wgmma = fns[name].launches_f32 = 0
     fns["attention"].launches_by_dh.clear()
+    fns["attention"].launches_padded.clear()
     quant.launches = 0          # the int8 GEMM (a library call)
 
 
@@ -3059,6 +3151,344 @@ def phase_flags_train32(state):
                              f"{counts['vgg_k2']} ({want_vgg} expected)")
 
 
+# the alternative denoiser families (``train_mode``), each at the
+# registry's full width under the VGG16 conditioning (train_VGG=False):
+# (tag, model flags)
+ALT_CONFIGS = (("stage_1", {"train_mode": "stage_1"}),
+               ("stage_1_transformer", {"train_mode": "stage_1_transformer"}),
+               ("stage_1_doctr", {"train_mode": "stage_1_doctr"}),
+               ("stage_1_doctr+init_flow", {"train_mode": "stage_1_doctr",
+                                            "use_init_flow": True}))
+# the code's K1 launches a denoiser call, by the caller's head dim (the
+# UNet's 7 at Dh 96 run on the 128 instance, zero-padded; GeoTr2's 12
+# layers attend twice each), and K2's (65 UNet, 2 transformer, 10 GeoTr2)
+ALT_K1 = {"stage_1": {96: 7, 128: 8}, "stage_1_transformer": {32: 13},
+          "stage_1_doctr": {32: 24}}
+ALT_K2 = {"stage_1": 65, "stage_1_transformer": 2, "stage_1_doctr": 10}
+# GeoTrSegInf's K2 launches a conditioning batch under use_init_flow: its
+# U2NetP mask's 118 and GeoTr's 13 (GEOTR_CLASSES)
+GEOTR_SEG_K2 = 118 + sum(GEOTR_CLASSES.values())
+# the stride-1 3x3 convs of one UNet and one GeoTr2 call at the serving
+# batch (4 pages x 2 hypotheses), (B, Cin, Cout, H, W, dilation) ->
+# launches a serving run (3 DDIM steps); models/unet_denoiser.py and
+# models/geotr.py:GeoTr2
+UNET_CLASSES = {(8, cin, cout, hw, hw, 1): 3 * n for cin, cout, hw, n in (
+    (68, 128, 64, 1), (128, 2, 64, 1), (128, 128, 64, 10), (128, 256, 32, 1),
+    (256, 128, 64, 3), (256, 256, 32, 9), (256, 256, 64, 1),
+    (256, 384, 16, 1), (384, 128, 64, 1), (384, 256, 32, 1),
+    (384, 384, 16, 9), (384, 384, 32, 1), (384, 512, 8, 1), (512, 256, 32, 2),
+    (512, 512, 8, 13), (512, 512, 16, 1), (640, 256, 32, 1),
+    (640, 384, 16, 1), (768, 384, 16, 2), (896, 384, 16, 1),
+    (896, 512, 8, 1), (1024, 512, 8, 3))}
+GEOTR2_CLASSES = {(8, cin, cout, hw, hw, 1): 3 * n for cin, cout, hw, n in (
+    (68, 64, 64, 1), (64, 64, 64, 3), (128, 128, 32, 3), (256, 256, 32, 2),
+    (256, 2, 32, 1))}
+
+
+def _alt_cfg(flags: dict, **over):
+    from dvd_tpu_torch.config import default_config
+
+    model = dict(flags, train_VGG=False, **over.pop("model", {}))
+    return default_config().replace(model=model, **over)
+
+
+def _alt_expected(cfg, calls: int) -> tuple:
+    """The code's K1 launches by the caller's head dim and K2 launches for
+    ``calls`` denoiser calls of ``cfg`` (GeoTrSegInf's 24 K1 and 131 K2
+    launches under use_init_flow, the VGG's 7 K2 launches, in f32)."""
+    m = cfg.model
+    k1 = Counter({dh: calls * n for dh, n in ALT_K1[m.train_mode].items()})
+    k2 = calls * ALT_K2[m.train_mode] + sum(VGG_CLASSES.values())
+    if m.use_init_flow:
+        k1[32] += GEOTR_K1
+        k2 += GEOTR_SEG_K2
+    return dict(k1), k2
+
+
+def _check_alt_launches(tag: str, cfg, counts: dict, dtype) -> None:
+    """K1 by the caller's head dim (instance Dh, plus the padded Dh 96) and
+    K2 as the code counts them, every K1 and K2 launch on ``dtype``'s
+    route but the VGG's 7 K2 launches (f32), no K3 launch outside the
+    unwarp: the alternative families sample without the re-warp."""
+    from dvd_tpu_torch.ops.kernels.attention import kernel_head_dim
+
+    calls = cfg.diffusion.diffusion_steps
+    want_k1, want_k2 = _alt_expected(cfg, calls)
+    by_dh, padded = counts["attention_by_dh"], counts["attention_padded"]
+    got_k1 = dict(by_dh)
+    for dh, n in padded.items():
+        got_k1[dh] = n
+        got_k1[kernel_head_dim(dh)] -= n
+    got_k1 = {dh: n for dh, n in got_k1.items() if n}
+    k1, k2 = counts["attention_routes"], counts["conv3x3_routes"]
+    bf16 = dtype == torch.bfloat16
+    vgg = sum(VGG_CLASSES.values())
+    want_k1_routes = {"wgmma": counts["attention"] if bf16 else 0,
+                      "f32": 0 if bf16 else counts["attention"]}
+    want_k2_routes = {"wgmma": want_k2 - vgg if bf16 else 0,
+                      "f32": vgg if bf16 else want_k2}
+    log(f"[{tag}] K1 by the caller's head dim {got_k1} (instances "
+        f"{by_dh}, padded {padded}), by route {k1}; K2 {counts['conv3x3']} "
+        f"by route {k2}, the VGG's {counts['vgg_k2']}; K3 "
+        f"{counts['gather_bilinear']}, unwarp {counts['unwarp']}")
+    if got_k1 != want_k1 or k1 != want_k1_routes or min(got_k1.values()) <= 0:
+        raise AssertionError(f"{tag}: K1 {got_k1} by route {k1}; expected "
+                             f"{want_k1}, {want_k1_routes}")
+    if counts["conv3x3"] != want_k2 or k2 != want_k2_routes or \
+            counts["vgg_k2"] != {"wgmma": 0, "f32": vgg}:
+        raise AssertionError(f"{tag}: K2 {counts['conv3x3']} by route {k2}, "
+                             f"the VGG's {counts['vgg_k2']}; expected "
+                             f"{want_k2}, {want_k2_routes}")
+    if counts["gather_bilinear"] != 0 or counts["unwarp"] != 1:
+        raise AssertionError(f"{tag}: K3 {counts['gather_bilinear']}, "
+                             f"unwarp {counts['unwarp']}; expected 0 and 1")
+
+
+def _main_run_counts(pipe) -> dict:
+    return dict(read_launches(), attention_routes=routes("attention"),
+                conv3x3_routes=routes("conv3x3"),
+                attention_by_dh=attention_by_dh(),
+                attention_padded=dict(
+                    _kernel_fns()["attention"].launches_padded))
+
+
+def alt_kernel_launches(runs: dict, route: str) -> dict:
+    """The alternative instances' launches for the JSON record, from each
+    family's main-path run in ``runs`` (alt: bf16, alt32: f32)."""
+    f32 = "_f32" if route == "f32" else ""
+    k2 = "f32" if route == "f32" else "wgmma"
+    unet, tr, geo = (runs[t] for t in ("stage_1", "stage_1_transformer",
+                                       "stage_1_doctr"))
+    return {f"attention{f32}_alt": tr["attention_by_dh"][32],
+            f"attention{f32}_geotr2": geo["attention_by_dh"][32],
+            f"attention{f32}_dh96": unet["attention_padded"][96],
+            f"attention{f32}_dh128": unet["attention_by_dh"][128]
+            - unet["attention_padded"][96],
+            f"conv3x3{f32}_unet": unet["conv3x3_routes"][k2]
+            - (sum(VGG_CLASSES.values()) if route == "f32" else 0),
+            f"conv3x3{f32}_geotr2": geo["conv3x3_routes"][k2]
+            - (sum(VGG_CLASSES.values()) if route == "f32" else 0)}
+
+
+def phase_alt32(state):
+    """The alternative families served at full width, f32, batch 1, one
+    hypothesis, 512^2, train_VGG=False: on the card through the kernels
+    and on the CPU through the twins, from one weight set (the
+    zero-initialised layers drawn small) and one pinned x_T; flow and
+    unwarped image within slice32's bars; launches and routes."""
+    from dvd_tpu_torch.evaluation.pipeline import DewarpPipeline, unwarp_fixed
+
+    state["alt32_launches"] = {}
+    for tag, flags in ALT_CONFIGS:
+        cfg = _alt_cfg(flags, model={"compute_dtype": "float32"},
+                       diffusion={"n_batch": 1})
+        m = cfg.model
+        gen = torch.Generator().manual_seed(SEED + 11)
+        src = _page(1, m.source_size, m.source_size, gen)
+        noise = torch.randn((1, m.image_size, m.image_size, 2), generator=gen)
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            pipe = DewarpPipeline.create(
+                cfg, dev, generator=torch.Generator().manual_seed(SEED + 12))
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                reset_launches()
+            t0 = time.perf_counter()
+            with vgg_k2_counter(pipe.vgg, {"wgmma": 0, "f32": 0}) as vgg_k2:
+                flow = pipe.dewarp_flow(src.to(dev), init_noise=noise.to(dev))
+                image = unwarp_fixed(src.to(dev), flow)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                counts = dict(_main_run_counts(pipe), vgg_k2=vgg_k2)
+            runs[dev] = (flow.cpu(), image.cpu())
+            log(f"[alt32 {tag}] {dev}: float32 batch 1, {m.source_size}^2, "
+                f"{cfg.diffusion.diffusion_steps} steps x 1 hypothesis in "
+                f"{time.perf_counter() - t0:.2f} s")
+            del pipe
+        _check_alt_launches(f"alt32 {tag}", cfg, counts, torch.float32)
+        (fc, ic), (fp, ip) = runs["cuda"], runs["cpu"]
+        if not (torch.isfinite(fc).all() and fc.abs().max() <= 1):
+            raise AssertionError(f"alt32 {tag}: flow not finite or outside "
+                                 "[-1, 1]")
+        log(f"[alt32 {tag}] flow |max| {fc.abs().max().item():.4f}, mean "
+            f"|flow| {fc.abs().mean().item():.4f}, clamped at +-1: "
+            f"{(fc.abs() >= 1).float().mean().item():.2%}")
+        # relative to max|ref|: GeoTr2's seeded flow is a few hundredths
+        compare(f"alt32 {tag} flow card vs CPU (x max|ref|)", fc, fp,
+                TOL["slice_flow"], rel=True)
+        compare(f"alt32 {tag} unwarped image card vs CPU", ic, ip,
+                TOL["slice_image"])
+        state["alt32_launches"][tag] = counts
+
+
+def phase_alt_train32(state):
+    """One f32 train step per family at full width, batch 2, 512^2: loss
+    and every gradient on the card through the kernels against the CPU
+    through the twins (train32's bars), the same weights (the
+    zero-initialised layers drawn small), batch, t and noise."""
+    from dvd_tpu_torch.evaluation.pipeline import DewarpPipeline
+    from dvd_tpu_torch.training.train_loop import build_device_batch
+    from dvd_tpu_torch.training.train_state import (create_train_state,
+                                                    make_train_step)
+
+    b = 2
+    for tag, flags in ALT_CONFIGS[:3]:
+        cfg = _alt_cfg(flags, model={"compute_dtype": "float32"},
+                       train={"on_device_aug": False})
+        m = cfg.model
+        gen = torch.Generator().manual_seed(SEED + 13)
+        raw = _wire_batch(b, gen)
+        t = torch.tensor([0, cfg.diffusion.diffusion_steps - 1])
+        noise = torch.randn((b, m.image_size, m.image_size, 2), generator=gen)
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            pipe = DewarpPipeline.create(
+                cfg, dev, generator=torch.Generator().manual_seed(SEED + 14),
+                train=True)
+            _fill_zero_layers(pipe.dit, SEED + 15)
+            train_state = create_train_state(cfg, pipe.dit)
+            step = make_train_step(cfg, pipe.sched)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                reset_launches()
+            t0 = time.perf_counter()
+            batch = build_device_batch(
+                pipe, {k: v.to(dev) for k, v in raw.items()}, m.image_size)
+            grads, _, metrics = step.loss_and_grads(train_state, batch, None,
+                                                    t=t, noise=noise)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                counts = dict(read_launches(),
+                              attention_routes=routes("attention"),
+                              conv3x3_routes=routes("conv3x3"))
+                check_conv_route(f"alt_train32 {tag}", torch.float32)
+            names = list(train_state.named_params())
+            runs[dev] = (metrics["loss"].item(),
+                         {k: g.detach().cpu() for k, g in zip(names, grads)})
+            log(f"[alt_train32 {tag}] {dev}: float32 batch {b}, 512^2, "
+                f"t={t.tolist()}, loss and gradients in "
+                f"{time.perf_counter() - t0:.2f} s")
+            del pipe, train_state
+        log(f"[alt_train32 {tag}] kernel launches in the card step: {counts}")
+        k1 = counts["attention_routes"]
+        if counts["attention"] <= 0 or counts["conv3x3"] <= 0 or \
+                k1 != {"wgmma": 0, "f32": counts["attention"]}:
+            raise AssertionError(f"alt_train32 {tag}: K1 {k1}, K2 "
+                                 f"{counts['conv3x3']}")
+        (lc, gc), (lp, gp) = runs["cuda"], runs["cpu"]
+        rel = abs(lc - lp) / max(abs(lp), 1e-30)
+        log(f"[alt_train32 {tag}] loss card {lc:.8f} CPU {lp:.8f}: relative "
+            f"{rel:.3e} (bar {TOL['train_loss_rel']:.0e})")
+        if not (math.isfinite(lc) and rel <= TOL["train_loss_rel"]):
+            raise AssertionError(f"alt_train32 {tag} loss: card {lc} vs CPU "
+                                 f"{lp}")
+        worst = (0.0, "")
+        for k, want in gp.items():
+            bar = TOL["train_grad"] * max(1.0, want.abs().max().item())
+            err = (gc[k] - want).abs().max().item()
+            if not (math.isfinite(err) and err <= bar):
+                raise AssertionError(f"alt_train32 {tag} gradient {k}: "
+                                     f"{err:.3e} > {bar:.3e}")
+            worst = max(worst, (err / bar, k))
+        nz = sum(int(g.abs().max() > 0) for g in gp.values())
+        log(f"[alt_train32 {tag}] {len(gp)} gradient tensors ({nz} nonzero) "
+            f"within {TOL['train_grad']:.0e} x max(1, max|g|); the closest "
+            f"to its bar: {worst[1]} at {worst[0]:.3f} of it")
+
+
+def phase_alt(state):
+    """Each family served in bf16 at the shipped batch 4, 3 DDIM steps x 2
+    hypotheses, 512^2 pages: launches and routes, outputs, K2's shape
+    classes, imgs/s, ms by stage and one profiled run; then the CLI's
+    single-image functions under ``--set model.train_mode=stage_1 --set
+    model.train_VGG=False`` on a 600x450 page."""
+    from dvd_tpu_torch.cli.run_sampling import (build_pipeline, dewarp_image,
+                                                parse_overrides)
+    from dvd_tpu_torch.config import default_config
+    from dvd_tpu_torch.evaluation.pipeline import DewarpPipeline, unwarp_fixed
+    from dvd_tpu_torch.training.checkpoint import maybe_load_pipeline_weights
+
+    label = state["label"]
+    state["alt"], state["alt_launches"] = {}, {}
+    for tag, flags in ALT_CONFIGS:
+        cfg = _alt_cfg(flags)
+        m, d = cfg.model, cfg.diffusion
+        batch = cfg.data.eval_device_batch
+        pipe = DewarpPipeline.create(
+            cfg, "cuda", generator=torch.Generator().manual_seed(SEED + 3))
+        gen = torch.Generator().manual_seed(SEED + 4)
+        src = _page(batch, m.source_size, m.source_size, gen).cuda()
+        cuda_gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+        log(f"[alt {tag}] {m.compute_dtype} batch {batch}, "
+            f"{m.source_size}^2, {d.diffusion_steps} DDIM steps x "
+            f"{d.n_batch} hypotheses ({label})")
+        torch.cuda.synchronize()
+        reset_launches()
+        with conv_shape_counter(Counter()) as shapes, torch.inference_mode(), \
+                vgg_k2_counter(pipe.vgg, {"wgmma": 0, "f32": 0}) as vgg_k2:
+            flow = pipe.dewarp_flow(src, generator=cuda_gen)
+            out = unwarp_fixed(src, flow)
+        torch.cuda.synchronize()
+        counts = dict(_main_run_counts(pipe), vgg_k2=vgg_k2)
+        _check_alt_launches(f"alt {tag}", cfg, counts, torch.bfloat16)
+        table = {"stage_1": UNET_CLASSES,
+                 "stage_1_doctr": GEOTR2_CLASSES}.get(m.train_mode, {})
+        off = {c: (shapes[c], n) for c, n in table.items() if shapes[c] != n}
+        if off:   # phase 2 times K2 at these classes: they must be the run's
+            raise AssertionError(f"alt {tag}: K2 classes (launched, "
+                                 f"expected): {off}")
+        if flow.shape != (batch, m.image_size, m.image_size, 2) or \
+                out.shape != src.shape or not (
+                    torch.isfinite(flow).all() and torch.isfinite(out).all()
+                    and flow.abs().max() <= 1):
+            raise AssertionError(f"alt {tag}: outputs malformed, not finite "
+                                 "or the flow outside [-1, 1]")
+        log(f"[alt {tag}] flow |max| {flow.abs().max().item():.4f}, mean "
+            f"|flow| {flow.abs().mean().item():.4f}; unwarped image range "
+            f"[{out.min().item():.3f}, {out.max().item():.3f}]")
+        state["alt_launches"][tag] = counts
+        iters = 5
+        stage = _warm_stages(pipe, src, cuda_gen, iters)
+        total = sum(stage.values())
+        log(f"[alt {tag}] {batch / total:.2f} imgs/s at batch {batch} "
+            f"({total * 1e3:.1f} ms per batch, mean of {iters} warm runs; "
+            f"{label})")
+        for k, v in stage.items():
+            log(f"[alt {tag}]   {k}: {v * 1e3:.2f} ms per batch ({label})")
+        rows, busy, wall = _profile(
+            pipe, src, cuda_gen, label,
+            need=("attention_wgmma_kernel", "conv3x3_wgmma_kernel",
+                  "conv3x3_f32x6_kernel", "unwarp_kernel"))
+        state["alt"][tag] = dict(imgs_per_sec=batch / total, stage=stage,
+                                 busy_ms=busy, wall_ms=wall * 1e3)
+        del pipe
+
+    # the CLI's single-image path (its --image entry reads the file with
+    # PIL, which the card's machine lacks): its overrides, pipeline, weight
+    # loading and array function
+    cfg = default_config().replace(**parse_overrides(
+        ["model.train_mode=stage_1", "model.train_VGG=False"]))
+    pipe = build_pipeline(cfg, SEED, "cuda")
+    loaded = maybe_load_pipeline_weights(pipe, cfg)
+    page = (_page(1, 450, 600, torch.Generator().manual_seed(SEED + 6))[0]
+            * 255).round().numpy()
+    before = read_launches()
+    t0 = time.perf_counter()
+    out_img, out_flow = dewarp_image(pipe, page, seed=SEED)
+    torch.cuda.synchronize()
+    after = read_launches()
+    if out_img.shape != (450, 600, 3) or out_flow.shape != (
+            cfg.model.image_size, cfg.model.image_size, 2) \
+            or not np.isfinite(out_img).all() or np.abs(out_flow).max() > 1:
+        raise AssertionError("alt CLI outputs malformed")
+    if any(after[k] <= before[k] for k in ("attention", "conv3x3", "unwarp")):
+        raise AssertionError(f"alt CLI: launches {before} -> {after}")
+    log(f"[alt] cli (--set model.train_mode=stage_1 --set "
+        f"model.train_VGG=False) dewarp_image 600x450 page: "
+        f"{out_img.shape} in {time.perf_counter() - t0:.3f} s; weight "
+        f"files loaded {loaded}")
+
+
 # the corruptions the card's machine can run (it has no cv2)
 def _corruptions_without_cv2():
     from dvd_tpu_torch.data.corruptions import CORRUPTIONS, NEEDS_CV2
@@ -3184,9 +3614,10 @@ def phase_score(state):
 
 # ---------------------------------------------------------------- main
 PHASES = (phase_env, phase_kernels, phase_int8, phase_slice32,
-          phase_slice_int8, phase_flags32, phase_shipped, phase_shipped_int8,
-          phase_shipped32, phase_flags, phase_train32, phase_flags_train32,
-          phase_train, phase_probe, phase_dataset, phase_corrupt, phase_score)
+          phase_slice_int8, phase_flags32, phase_alt32, phase_shipped,
+          phase_shipped_int8, phase_shipped32, phase_flags, phase_alt,
+          phase_train32, phase_flags_train32, phase_alt_train32, phase_train,
+          phase_probe, phase_dataset, phase_corrupt, phase_score)
 
 
 def main(argv=None) -> int:
@@ -3219,7 +3650,9 @@ def main(argv=None) -> int:
                 "train32": state["train32_launches"],
                 "probe": state["probe_launches"],
                 "flags": state["flags_launches"],
-                "flags32": state["flags32_launches"]}
+                "flags32": state["flags32_launches"],
+                "alt": alt_kernel_launches(state["alt_launches"], "bf16"),
+                "alt32": alt_kernel_launches(state["alt32_launches"], "f32")}
     for name, (src, replaces, run) in KERNELS.items():
         r = state["kernel_times"][(name, RECORD_CASE[name])]
         kernels.append({

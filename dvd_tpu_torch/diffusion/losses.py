@@ -7,7 +7,9 @@
   recurrent ``init_flow``/``init_feat``, then one supervised model call
   with the warp-composed masked MSE;
 - :func:`composed_warp_loss` -- the no-rollout DiT path (``iter=False``,
-  ``training_losses_new_dit``, ``:1009-1059``).
+  ``training_losses_new_dit``, ``:1009-1059``);
+- :func:`plain_masked_mse` -- the alternative denoisers' (``training_losses``,
+  ``:1062-1102``): no warp, no rollout.
 
 The loss is ``sum((target - f_new)^2) / sum(mask)`` over the
 512^2-upsampled field, where ``f_new = warp(f_inter, (out + base) * 2 -
@@ -141,3 +143,35 @@ def time_variant_loss(
         seed_init_feat=(t == sched.num_timesteps - 1),
         remap_timesteps=False)
     return _composed_terms(x_start_pm, model_output, f_inter_pm, mask)
+
+
+def plain_masked_mse(
+    model_fn: Callable,
+    sched: DiffusionSchedule,
+    cond: Dict[str, torch.Tensor],
+    x_start: torch.Tensor,          # (B, S, S, 2) GT offsets at latent res
+    mask: torch.Tensor,             # (B, H, H) or (B, H, H, 1)
+    t: torch.Tensor,
+    *,
+    noise: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+    **model_kwargs,
+) -> Dict[str, torch.Tensor]:
+    """training_losses (the plain masked MSE at the mask's size, reference
+    ``:1062-1102``) for the alternative denoisers: ``model_fn(x_t,
+    model_t(t), cond, **model_kwargs)`` sees the rescaled timesteps (the
+    reference routes this loss through SpacedDiffusion's wrapper), and its
+    output and x_start, both bilinear (align_corners) at H, are compared
+    under the mask."""
+    if mask.dim() == 3:
+        mask = mask[..., None]
+    h = mask.shape[1]
+    x_t = G.q_sample(sched, x_start, t, _noise(x_start, noise, generator))
+    out = model_fn(x_t, G.model_t(sched, t), cond, **model_kwargs)
+    target = _resize_hwc(x_start, h) * mask
+    out = _resize_hwc(at_least_f32(out), h) * mask
+    num = ((target - out) ** 2).sum((1, 2, 3))
+    den_per = mask.sum((1, 2, 3))
+    mse = num.sum() / den_per.sum()
+    return {"mse": mse, "loss": mse,
+            "mse_per": num / den_per.clamp(min=1e-12)}

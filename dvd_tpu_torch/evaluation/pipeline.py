@@ -1,5 +1,5 @@
-"""End-to-end dewarping pipeline, DiT branch (port of
-``dvd_tpu/evaluation/pipeline.py``).
+"""End-to-end dewarping pipeline (port of
+``dvd_tpu/evaluation/pipeline.py``).  The production DiT's path:
 
 1. 512^2 source -> 288^2 (align_corners=True) for the perception nets;
 2. GeoTrSegInf: the soft document mask at 512^2 (``mask_cat``), and under
@@ -33,9 +33,21 @@ Weights are drawn from a seed or loaded from converted files
 int8 codes are quantized from them, as ``dvd_tpu`` quantizes from its f32
 parameters) while the rest of the DiT is stored in the compute dtype.
 
-Not ported yet (raise ``NotImplementedError``): the alternative
-denoisers (``train_mode`` other than the DiT's) and
-``serve_cond_chunk``.
+The alternative denoisers (``train_mode`` ``stage_1``,
+``stage_1_transformer``, ``stage_1_doctr``; ``models/registry.py``) take
+the same entry points: their conditioning is the VGG16 pyramid's 64-ch
+``c20_for_unet`` plane (they need ``train_VGG=False``) and, under
+``use_init_flow``, GeoTr's init flow; no seg or line stream is computed.
+Their model function has no recurrent features and no timestep remap:
+the sampler's rescaled ``G.model_t`` time goes in as it is, and the DDIM
+loop carries no recurrent state for them (``dvd_tpu`` samples them with
+``time_variant=False``).  ``model.quantize`` reaches the DiT alone, as in
+``dvd_tpu``.
+
+Refused: ``sr`` and ``trg_feat`` (``NotImplementedError``, as
+``dvd_tpu``: no entry point makes their conditioning), an alternative
+denoiser with ``train_VGG=True`` (``ValueError``), and
+``serve_cond_chunk`` (not ported).
 """
 
 from __future__ import annotations
@@ -48,13 +60,14 @@ import torch
 from dvd_tpu_torch.config import DvDConfig
 from dvd_tpu_torch.diffusion.sampler import ddim_sample_loop
 from dvd_tpu_torch.diffusion.schedule import DiffusionSchedule, make_schedule
-from dvd_tpu_torch.models.dit import (DiT, conditioning_pyramid_features,
-                                      make_dit)
+from dvd_tpu_torch.models.dit import DiT, conditioning_pyramid_features
 from dvd_tpu_torch.models.geotr import GeoTrSegInf
 from dvd_tpu_torch.models.layers import seeded_init_
+from dvd_tpu_torch.models.registry import (check_driver_mode, create_model,
+                                           is_dit_mode)
 from dvd_tpu_torch.models.textline_unet import TextLineUNet
 from dvd_tpu_torch.models.u2net import Seg, seg_pyramid_to_latent
-from dvd_tpu_torch.models.vgg import VGG16Pyramid, c20_for_dit
+from dvd_tpu_torch.models.vgg import VGG16Pyramid, c20_for_dit, c20_for_unet
 from dvd_tpu_torch.ops.kernels.unwarp import native_grid, unwarp  # noqa: F401
 from dvd_tpu_torch.ops.resize import resize_bilinear
 from dvd_tpu_torch.utils.grids import UNWARP_SHRINK
@@ -63,11 +76,18 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def check_config(cfg: DvDConfig) -> None:
-    """Raise for the flags whose code paths are not ported yet."""
+    """Raise for a train_mode the entry points cannot condition and an
+    alternative denoiser without the VGG conditioning, as ``dvd_tpu``
+    does, and for the flags whose code paths are not ported yet."""
     m = cfg.model
+    check_driver_mode(m.train_mode)
+    if not is_dit_mode(m.train_mode) and m.train_VGG:
+        raise ValueError(
+            f"train_mode={m.train_mode!r} needs the external VGG "
+            "conditioning features (the reference's "
+            "extract_raw_features_single, eval_utils.py:148); set "
+            "model.train_VGG=False")
     todo = []
-    if m.train_mode not in ("stage_1_dit_cross", "stage_1_dit_cat"):
-        todo.append(f"train_mode={m.train_mode!r} (alternative denoisers)")
     if m.quantize not in ("none", "int8"):
         todo.append(f"quantize={m.quantize!r}")
     if m.serve_cond_chunk:
@@ -79,11 +99,13 @@ def check_config(cfg: DvDConfig) -> None:
         raise NotImplementedError("not ported yet: " + "; ".join(todo))
 
 
-def _place_dit(dit: DiT, device: torch.device, dtype: torch.dtype) -> None:
-    """Move the DiT to ``device`` and cast it to ``dtype``, all but its
-    int8 layers' parameters, which stay f32 (``DiT.int8_layers``)."""
-    keep = {id(p) for _, layer in dit.int8_layers()
-            for p in layer.parameters()}
+def _place_dit(dit: torch.nn.Module, device: torch.device,
+               dtype: torch.dtype) -> None:
+    """Move the denoiser to ``device`` and cast it to ``dtype``, all but a
+    DiT's int8 layers' parameters, which stay f32 (``DiT.int8_layers``;
+    the alternative denoisers have none)."""
+    int8_layers = getattr(dit, "int8_layers", lambda: ())
+    keep = {id(p) for _, layer in int8_layers() for p in layer.parameters()}
     dit.to(device)
     with torch.no_grad():
         for p in dit.parameters():
@@ -97,12 +119,16 @@ def _place_dit(dit: DiT, device: torch.device, dtype: torch.dtype) -> None:
 
 @dataclasses.dataclass
 class DewarpPipeline:
-    """The networks + the schedule, on one device: the DiT, Seg, the line
-    UNet, GeoTrSegInf (with its GeoTr under ``use_init_flow``) and, under
-    ``train_VGG=False``, the VGG16 pyramid."""
+    """The networks + the schedule, on one device: the denoiser
+    (``dit``: the DiT or an alternative family), Seg, the line UNet,
+    GeoTrSegInf (with its GeoTr under ``use_init_flow``) and, under
+    ``train_VGG=False``, the VGG16 pyramid.  The alternative families
+    read only the VGG pyramid and, under ``use_init_flow``, GeoTrSegInf;
+    Seg and the line UNet are built all the same, so that one set of
+    weight files loads into any configuration."""
 
     cfg: DvDConfig
-    dit: DiT
+    dit: torch.nn.Module
     seg: Seg
     line: TextLineUNet
     geotr: GeoTrSegInf
@@ -114,17 +140,19 @@ class DewarpPipeline:
     @classmethod
     def create(cls, cfg: DvDConfig, device="cuda",
                generator: Optional[torch.Generator] = None,
-               dit: Optional[DiT] = None,
+               dit: Optional[torch.nn.Module] = None,
                train: bool = False) -> "DewarpPipeline":
         """Build the networks for ``cfg`` on ``device`` (the card unless
         the caller asks for the CPU); with a (CPU) ``generator`` their
         weights are drawn from it (``seeded_init_``), else they keep
         torch's default init until weights are loaded.  ``dit`` replaces
-        the config's DiT (tests use a narrow one; under int8 it must be
-        built with ``quant=True``).  With ``train`` the DiT
+        the config's denoiser (``models/registry.py:create_model``; tests
+        use a narrow one; a DiT under int8 must be built with
+        ``quant=True``).  With ``train`` the denoiser
         keeps ``model.param_dtype`` parameters that require gradients (the
         training step computes in ``compute_dtype`` under autocast), and
-        drawn weights start its adaLN and final layers at zero, as the
+        drawn weights start its zero-initialised layers (the DiT's adaLN
+        and final layers, the UNet's ``ZERO_INIT_LAYERS``) at zero, as the
         reference's training init; the aux nets stay frozen either way.
         GeoTr's transformer is built only under ``use_init_flow`` and the
         VGG pyramid only under ``train_VGG=False``; their weights are drawn
@@ -135,14 +163,8 @@ class DewarpPipeline:
         quant = m.quantize == "int8"
         device = torch.device(device)
         if dit is None:
-            dit = make_dit(m.dit_variant, input_size=m.image_size,
-                           in_channels=m.in_channels, tv=m.time_variant,
-                           chain_blocks=m.chain_blocks,
-                           with_mask=not m.use_gt_mask,
-                           with_line=m.use_line_mask and not m.use_gt_mask,
-                           quant=quant,
-                           separate_cross_attn=m.separate_cross_attn)
-        if dit.quant != quant:
+            dit = create_model(cfg)
+        if isinstance(dit, DiT) and dit.quant != quant:
             raise ValueError(f"model.quantize={m.quantize!r} with a DiT "
                              f"built with quant={dit.quant}")
         nets = dict(dit=dit, seg=Seg(m.source_size), line=TextLineUNet(),
@@ -174,17 +196,32 @@ class DewarpPipeline:
             nets["dit"].requires_grad_(True)
         return cls(cfg=cfg, sched=sched, device=device, dtype=dtype, **nets)
 
+    @property
+    def is_dit(self) -> bool:
+        return isinstance(self.dit, DiT)
+
     # ------------------------------------------------------ conditioning
     def build_conditioning(self, source512: torch.Tensor):
         """(B, 512, 512, 3) in [0, 1] -> (cond, init_flow, init_feat): the
-        conditioning dict (NCHW tensors) and the zero recurrent state."""
+        conditioning dict (NCHW tensors) and the zero recurrent state.  An
+        alternative denoiser's dict holds only ``src_feat``, the VGG16
+        pyramid's 64-ch ``c20_for_unet`` plane (reference
+        ``extract_raw_features_single``, eval_utils.py:148), and GeoTr
+        runs only when its init flow is used."""
         m = self.cfg.model
         s, per = m.image_size, m.perception_size
         x = source512.to(self.device, torch.float32).permute(0, 3, 1, 2)
         x = x.contiguous()
         b = x.shape[0]
+        init_feat = torch.zeros((b, 256, s, s), device=self.device)
+        if not self.is_dit and not m.use_init_flow:
+            return ({"src_feat": c20_for_unet(self.vgg(x), s)},
+                    self._init_flow(None, b), init_feat)
         xa = resize_bilinear(x, (per, per), True).to(self.dtype).contiguous()
         ref_bm, mask_cat = self.geotr(xa)
+        if not self.is_dit:
+            return ({"src_feat": c20_for_unet(self.vgg(x), s)},
+                    self._init_flow(ref_bm, b), init_feat)
         cond = {"y512": x, "mask_cat": mask_cat}
         if not m.use_gt_mask:
             mskx, _, pyramid = self.seg(xa)
@@ -196,16 +233,21 @@ class DewarpPipeline:
             # the frozen VGG16 features in f32 replace the DiT's pyramid
             # (reference evaluation.py:224-236)
             cond["src_feat"] = c20_for_dit(self.vgg(x), s)
-        if ref_bm is not None:
-            # GeoTr's coarse offsets seed the residual stream (reference
-            # evaluation.py:176-179: ref_bm / 287, bilinear to the latent)
-            ref_flow = (ref_bm.float() / (per - 1.0)).permute(0, 3, 1, 2)
-            init_flow = resize_bilinear(ref_flow, (s, s), True) \
-                .permute(0, 2, 3, 1).contiguous()
-        else:
-            init_flow = torch.zeros((b, s, s, 2), device=self.device)
-        init_feat = torch.zeros((b, 256, s, s), device=self.device)
-        return cond, init_flow, init_feat
+        return cond, self._init_flow(ref_bm, b), init_feat
+
+    def _init_flow(self, ref_bm: Optional[torch.Tensor], b: int
+                   ) -> torch.Tensor:
+        """GeoTr's coarse offsets as the (B, S, S, 2) init_flow (reference
+        evaluation.py:176-179: ref_bm / 287, bilinear to the latent), or
+        zeros without GeoTr."""
+        m = self.cfg.model
+        s = m.image_size
+        if ref_bm is None:
+            return torch.zeros((b, s, s, 2), device=self.device)
+        ref_flow = (ref_bm.float() / (m.perception_size - 1.0)) \
+            .permute(0, 3, 1, 2)
+        return resize_bilinear(ref_flow, (s, s), True) \
+            .permute(0, 2, 3, 1).contiguous()
 
     # ---------------------------------------------------------- sampling
     def _hoist_pyramid(self, cond: Dict) -> Dict:
@@ -232,6 +274,11 @@ class DewarpPipeline:
 
     def model_fn(self, x, t, cond, *, init_flow, init_feat, seed_init_feat,
                  remap_timesteps):
+        if not self.is_dit:
+            # the reference's UNet-era call: no recurrent features, no
+            # timestep remap (t is the sampler's rescaled G.model_t)
+            return self.dit(x, t, src_feat=cond["src_feat"],
+                            init_flow=init_flow), init_feat
         return self.dit(
             x, t, init_flow=init_flow, init_feat=init_feat,
             src_feat=cond["src_feat"], cond_tokens=cond.get("cond_tokens"),
@@ -246,9 +293,12 @@ class DewarpPipeline:
                       ) -> torch.Tensor:
         """Diffusion stage (conditioning precomputed) -> (B, S, S, 2).
         ``init_noise`` pins x_T; otherwise it is drawn from ``generator``
-        (a generator on the pipeline's device)."""
-        tv = bool(self.cfg.model.time_variant)
-        cond = self._hoist_stream_tokens(self._hoist_pyramid(cond))
+        (a generator on the pipeline's device).  The alternative denoisers
+        are sampled without the recurrent state, as ``dvd_tpu`` samples
+        them (``time_variant=False``: no re-warp, init_flow held)."""
+        tv = self.is_dit and bool(self.cfg.model.time_variant)
+        if self.is_dit:
+            cond = self._hoist_stream_tokens(self._hoist_pyramid(cond))
         d = self.cfg.diffusion
         return ddim_sample_loop(
             self.model_fn, self.sched, cond, init_flow,

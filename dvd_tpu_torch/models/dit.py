@@ -52,7 +52,7 @@ import torch.nn.functional as F
 from dvd_tpu_torch.models import satrn
 from dvd_tpu_torch.models.layers import (CrossAttention, Mlp, PatchEmbed,
                                          SelfAttention, TimestepEmbedder,
-                                         conv3x3_folded,
+                                         compute_dtype, conv3x3_folded,
                                          get_2d_sincos_pos_embed, layer_norm,
                                          modulate)
 from dvd_tpu_torch.ops.resize import resize_bilinear
@@ -273,10 +273,7 @@ class DiT(nn.Module):
     def dtype(self) -> torch.dtype:
         """The compute dtype: autocast's when it is on for the weights'
         device, else the weights' own."""
-        w = self.obs_embedder.proj.weight
-        if torch.is_autocast_enabled(w.device.type):
-            return torch.get_autocast_dtype(w.device.type)
-        return w.dtype
+        return compute_dtype(self.obs_embedder.proj.weight)
 
     def embed(self, name: str, x: torch.Tensor) -> torch.Tensor:
         """One patch embedder (+ pos): NCHW -> (N, T, D) in the DiT dtype."""

@@ -13,7 +13,9 @@ port of ``dvd_tpu/models/geotr.py``, reference ``geotr_core.py:337-740,
 - ``GeoTr``: a P^2 image -> the backward map's offsets (pixels) at P^2;
 - ``GeoTrSegInf``: the soft U2NetP mask times the image -> GeoTr, and the
   mask upsampled to ``mask_size``; ``GeoTrSeg`` with the hard 0.5 mask;
-  ``GeoTrSegWoMask`` without one.
+  ``GeoTrSegWoMask`` without one;
+- ``GeoTr2``, the alternative denoiser ``stage_1_doctr``, on
+  ``BasicEncoder2``.
 
 Serving builds ``GeoTrSegInf`` with its GeoTr only under
 ``use_init_flow=True``: otherwise only the mask reaches the DiT (the
@@ -43,8 +45,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from dvd_tpu_torch.models.layers import (CrossAttention, LayerNorm,
-                                         conv1x1_f32, conv3x3_folded,
-                                         conv_matmul)
+                                         compute_dtype, conv1x1_f32,
+                                         conv3x3_folded, conv_matmul)
 from dvd_tpu_torch.models.u2net import U2NetP
 from dvd_tpu_torch.ops.resize import resize_bilinear
 from dvd_tpu_torch.utils.dtypes import at_least_f32
@@ -110,6 +112,28 @@ class BasicEncoder(nn.Module):
         x = F.relu(instance_norm(conv_matmul(self.conv1, x)))
         for name in ("layer1_0", "layer1_1", "layer2_0", "layer2_1",
                      "layer3_0", "layer3_1"):
+            x = getattr(self, name)(x)
+        return conv1x1_f32(self.conv2, x)
+
+
+class BasicEncoder2(nn.Module):
+    """GeoTr2's encoder: no stem conv and no layer3; an ``in_planes``-ch
+    input at full resolution -> ``output_dim`` at /2 (reference
+    extractor.py:119-174).  ``layer1_0`` takes its 68 channels through the
+    1x1 projection that ``dvd_tpu`` adds where the shapes change (upstream
+    has none there, see ``GeoTr2``)."""
+
+    def __init__(self, in_planes: int = 68, output_dim: int = 256):
+        super().__init__()
+        for name, cin, cout, stride in (
+                ("layer1_0", in_planes, 64, 1), ("layer1_1", 64, 64, 1),
+                ("layer2_0", 64, 128, 2), ("layer2_1", 128, 128, 1)):
+            setattr(self, name, ResidualBlock(cin, cout, stride))
+        self.conv2 = nn.Conv2d(128, output_dim, 1)
+
+    def forward(self, x):
+        x = F.relu(instance_norm(x))
+        for name in ("layer1_0", "layer1_1", "layer2_0", "layer2_1"):
             x = getattr(self, name)(x)
         return conv1x1_f32(self.conv2, x)
 
@@ -344,3 +368,47 @@ class GeoTrSegWoMask(nn.Module):
 
     def forward(self, x):
         return self.GeoTr(x), None
+
+
+class GeoTr2(nn.Module):
+    """DocTr as a denoiser (``train_mode='stage_1_doctr'``, reference
+    geotr_core.py:612-685): cat[src_feat (64), x (2), init_flow (2)] at the
+    latent size -> BasicEncoder2 (/2) -> TransEncoder and TransDecoder over
+    (latent/2)^2 tokens -> the flow head and the convex 8x upsampling ->
+    bilinear (align_corners) to the latent size, / 256.
+
+    Upstream's ``GeoTr2.forward`` does not run as shipped (it reads an
+    unset ``self.train_mode`` and calls its decoder without the query
+    embedding; ``dvd_tpu/models/geotr.py:GeoTr2``).  This is
+    ``dvd_tpu``'s reading of it: the decoder holds and takes its learned
+    queries, and the 68-channel input reaches ``layer1_0`` through a 1x1
+    projection.  ``t`` is not used, as upstream; upstream's second output
+    (always None) is dropped.  K1 at Dh 32 (8 heads over 1024 tokens at
+    latent 64), K2 at every stride-1 3x3 conv; the output f32."""
+
+    def __init__(self, num_attn_layers: int = 6, hidden_dim: int = 256,
+                 latent: int = 64, in_channels: int = 68):
+        super().__init__()
+        self.latent = latent
+        self.fnet = BasicEncoder2(in_channels, hidden_dim)
+        self.TransEncoder_0 = TransEncoder(num_attn_layers, hidden_dim)
+        self.TransDecoder_0 = TransDecoder(num_attn_layers, hidden_dim,
+                                           (latent // 2) ** 2)
+        self.update_block = UpdateBlock(hidden_dim)
+
+    def forward(self, x: torch.Tensor, t: torch.Tensor, *,
+                src_feat: torch.Tensor, init_flow: torch.Tensor
+                ) -> torch.Tensor:
+        """x, init_flow (N, S, S, 2), src_feat (N, 64, S, S) -> the
+        (N, S, S, 2) f32 flow."""
+        dt = compute_dtype(self.update_block.mask_2.weight)
+        h = torch.cat([src_feat, x.permute(0, 3, 1, 2),
+                       init_flow.permute(0, 3, 1, 2)], dim=1).to(dt)
+        fmap = F.relu(self.fnet(h.contiguous()))
+        fmap = self.TransDecoder_0(self.TransEncoder_0(fmap)).to(dt)
+        n, _, hh, ww = fmap.shape
+        coords0 = coords_grid_pixels(n, hh, ww, fmap.device)
+        mask, coords1 = self.update_block(fmap, coords0)
+        bm = convex_upsample_flow(coords1 - coords0, mask)
+        bm = resize_bilinear(bm.permute(0, 3, 1, 2), (self.latent,) * 2, True)
+        return bm.permute(0, 2, 3, 1) / 256.0

@@ -262,10 +262,13 @@ def conv_matmul(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
 
 
 # layers that training initialises to zero (the DiT's adaLN-zero gates and
-# final projection): random weights give them N(0, std^2), as the parity
-# tests fill the zero leaves of ``dvd_tpu``'s init
+# final projection; the UNet denoiser's ResBlock ``conv_out``,
+# AttentionBlock ``proj_out`` and ``out_conv``): random weights give them
+# N(0, std^2), as the parity tests fill the zero leaves of ``dvd_tpu``'s
+# init
 ZERO_INIT_LAYERS = ("adaLN_modulation_1.", "final_layer2.linear.",
-                    "final_layer.linear.")
+                    "final_layer.linear.", "conv_out.", "proj_out.",
+                    "out_conv.")
 
 
 @torch.no_grad()
@@ -311,6 +314,55 @@ class LayerNorm(nn.Module):
 
     def forward(self, x):
         return F.layer_norm(x, (x.shape[-1],), self.scale, self.bias, self.eps)
+
+
+class GroupNorm(nn.Module):
+    """flax ``nn.GroupNorm``'s parameters (``scale``, ``bias``) over NCHW
+    x: ``F.group_norm``, two-pass statistics in x's dtype."""
+
+    def __init__(self, num_groups: int, features: int, eps: float):
+        super().__init__()
+        self.num_groups, self.eps = num_groups, eps
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.group_norm(x, self.num_groups, self.scale.to(x.dtype),
+                            self.bias.to(x.dtype), self.eps)
+
+
+class GroupNorm32(nn.Module):
+    """GroupNorm over min(32, C) groups, eps 1e-5, computed in f32 (at
+    least), the result in x's dtype (``dvd_tpu`` ``GroupNorm32``;
+    reference ``nn.py:13-20,103``).  flax computes the variance as
+    E[x^2] - E[x]^2; this is two-pass, which at f32 differs by about 1e-6
+    of the normalised signal and keeps its precision where the mean is
+    large."""
+
+    def __init__(self, features: int, num_groups: int = 32):
+        super().__init__()
+        self.GroupNorm_0 = GroupNorm(min(num_groups, features), features,
+                                     1e-5)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.GroupNorm_0(at_least_f32(x)).to(x.dtype)
+
+
+def compute_dtype(weight: torch.Tensor) -> torch.dtype:
+    """The dtype a module with ``weight`` computes in: autocast's when it
+    is on for the weight's device (f32 training parameters), else the
+    weight's own (serving stores the model in the compute dtype)."""
+    if torch.is_autocast_enabled(weight.device.type):
+        return torch.get_autocast_dtype(weight.device.type)
+    return weight.dtype
+
+
+def conv3x3_same(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """A stride-1 3x3 'SAME' conv + bias through K2 (the trainable
+    Function when a gradient is needed), x cast to the conv's compute
+    dtype."""
+    return conv3x3_folded(conv, None,
+                          x.to(compute_dtype(conv.weight)).contiguous(), False)
 
 
 class BatchNorm(nn.Module):

@@ -36,9 +36,11 @@ from dvd_tpu_torch.ops.kernels import build
 from dvd_tpu_torch.utils.dtypes import at_least_f32
 
 # head dims with a kernel (DVD_FOR_EACH_DH in both sources): the mini
-# test DiT (16), GeoTr's transformer (8 heads of 32), DiT-S/B/L (64), the
-# SATRN decoder over 2-4 streams (64 * k); any other head dim up to 256 is
-# zero-padded to the next (kernel_head_dim)
+# test DiT (16), GeoTr's transformer, GeoTr2 and the transformer denoiser
+# (32), DiT-S/B/L (64), the UNet denoiser's 512-channel level (128), the
+# SATRN decoder over 2-4 streams (64 * k); any other head dim up to 256
+# (DiT-XL's 72, the UNet denoiser's 96) is zero-padded to the next
+# (kernel_head_dim)
 HEAD_DIMS = (16, 32, 64, 128, 192, 256)
 # CUDA entry by dtype
 _ENTRIES = {torch.float32: "dvd_attention_fwd_f32x6",
@@ -179,7 +181,10 @@ def _forward(q, k, v, scale: float) -> torch.Tensor:
     else:
         attention.launches_f32 += 1
     attention.launches_by_dh[dh] += 1
-    return out[..., :dh_in] if dh != dh_in else out
+    if dh != dh_in:
+        attention.launches_padded[dh_in] += 1
+        return out[..., :dh_in]
+    return out
 
 
 attention.launches = 0
@@ -188,3 +193,6 @@ attention.launches_f32 = 0
 # launches by the kernel instance's head dim (a padded head dim counts as
 # the instance it runs on)
 attention.launches_by_dh = Counter()
+# the padded launches by the caller's head dim (DiT-XL's 72, the UNet
+# denoiser's 96)
+attention.launches_padded = Counter()

@@ -6,7 +6,8 @@ Two directions:
    port's own copy of ``dvd_tpu/training/convert.py``
    (``load_torch_state_dict``, ``convert_state_dict`` and the rule sets
    ``DIT_RULES``, ``GEOTR_SEG_RULES``, ``U2NETP_RULES``,
-   ``LINE_UNET_RULES``, ``VGG16_RULES``): conv weights (O, I, kh, kw) ->
+   ``LINE_UNET_RULES``, ``VGG16_RULES``, ``unet_rules``,
+   ``TRANSFORMER_RULES``): conv weights (O, I, kh, kw) ->
    (kh, kw, I, O), linear (O, I) -> (I, O), norm ``weight`` -> ``scale``,
    BN ``running_*`` -> the ``batch_stats`` collection, packed
    ``in_proj_*`` -> q/k/v projections, and regex module-path rewrites per
@@ -27,8 +28,8 @@ Variables are nested dicts of numpy arrays or CPU tensors (``{"params":
 after ``jax.device_get``, as the converter builds them, or as
 ``utils/msgpack_io`` reads them (bfloat16 leaves as tensors).
 
-The rewrite rules of the reference's alternative denoisers
-(``unet_rules``, ``TRANSFORMER_RULES``) wait for their port.
+The alternative denoisers' rule sets are here too: ``unet_rules`` (after
+``preprocess_unet_attention``) and ``TRANSFORMER_RULES``.
 ``dvd_tpu``'s ``split_frozen_bn`` is not copied: it is the identity (the
 converter already writes FrozenBatchNorm's layout) and nothing calls it.
 """
@@ -340,6 +341,123 @@ LINE_UNET_RULES: List[Tuple[str, Optional[str]]] = [
     (r"(up[0-9])\.conv\.double_conv\.3\.", r"\1.conv_3."),
     (r"(up[0-9])\.conv\.double_conv\.4\.", r"\1.bn_4."),
     (r"outc\.conv\.", r"outc."),
+]
+
+def unet_qkv_perm(c3: int, num_heads: int) -> np.ndarray:
+    """Channel permutation torch -> flax for the improved-diffusion QKV
+    conv.
+
+    The reference's ``QKVAttention`` reshapes the 3c qkv channels to
+    ``[b*heads, 3c/heads, T]`` and splits per head (``unet.py:218-228``):
+    channel j = (head, part in q/k/v, within) at ``j = head*3*dh + part*dh
+    + within``.  ``AttentionBlock`` splits the projection globally into
+    q|k|v with the heads contiguous inside each: ``j' = part*c + head*dh +
+    within``.  Both concatenate the heads contiguously on output, so this
+    input-side permutation is the only difference."""
+    c = c3 // 3
+    dh = c // num_heads
+    perm = np.empty(c3, np.int64)
+    for h in range(num_heads):
+        for p in range(3):
+            src = h * 3 * dh + p * dh
+            dst = p * c + h * dh
+            perm[dst:dst + dh] = np.arange(src, src + dh)
+    return perm
+
+
+def preprocess_unet_attention(sd: FlatDict, num_heads: int) -> FlatDict:
+    """Squeeze the reference UNet's 1x1 conv1d attention weights to the 2-D
+    linear layout and apply the per-head qkv channel permutation (see
+    :func:`unet_qkv_perm`).  ``num_heads`` must equal num_heads_upsample
+    (the reference default ``-1`` aliases them)."""
+    out = {}
+    for k, v in sd.items():
+        v = np.asarray(v)
+        if k.endswith(".qkv.weight"):
+            v = v[..., 0][unet_qkv_perm(v.shape[0], num_heads)]
+        elif k.endswith(".qkv.bias"):
+            v = v[unet_qkv_perm(v.shape[0], num_heads)]
+        elif k.endswith(".proj_out.weight") and v.ndim == 3:
+            v = v[..., 0]
+        out[k] = v
+    return out
+
+
+_RESBLOCK_RULES: List[Tuple[str, str]] = [
+    # GroupNorm32 wraps an anonymous flax GroupNorm -> extra path segment
+    (r"\.in_layers\.0\.", r".norm_in.GroupNorm_0."),
+    (r"\.in_layers\.2\.", r".conv_in."),
+    (r"\.emb_layers\.1\.", r".emb_proj."),
+    (r"\.out_layers\.0\.", r".norm_out.GroupNorm_0."),
+    (r"\.out_layers\.3\.", r".conv_out."),
+    (r"\.norm\.", r".norm.GroupNorm_0."),  # AttentionBlock pre-norm
+]
+
+
+def unet_rules(channel_mult: Tuple[int, ...] = (1, 2, 3, 4),
+               num_res_blocks: int = 3,
+               attention_ds: Tuple[int, ...] = (4, 8)
+               ) -> List[Tuple[str, str]]:
+    """Rewrite rules for ``UNetModel_stage1``/``_sr`` (``unet.py:552-853``)
+    -> ``UNetDenoiser``.
+
+    The torch module enumerates its blocks as flat ``input_blocks.{i}`` /
+    ``output_blocks.{j}`` ModuleLists whose composition depends on
+    (channel_mult, num_res_blocks, attention_ds); this regenerates the
+    exact index map for a given config.  Run the state dict through
+    :func:`preprocess_unet_attention` first.
+    """
+    rules: List[Tuple[str, str]] = [
+        (r"^time_embed\.0\.", r"time_embed_0."),
+        (r"^time_embed\.2\.", r"time_embed_2."),
+        (r"^input_blocks\.0\.0\.", r"in_conv."),
+        (r"^middle_block\.0\.", r"middle_res1."),
+        (r"^middle_block\.1\.", r"middle_attn."),
+        (r"^middle_block\.2\.", r"middle_res2."),
+        (r"^out\.0\.", r"out_norm.GroupNorm_0."),
+        (r"^out\.2\.", r"out_conv."),
+    ]
+    idx, ds, bi = 1, 1, 0
+    for level in range(len(channel_mult)):
+        for _ in range(num_res_blocks):
+            rules.append((rf"^input_blocks\.{idx}\.0\.", rf"down_{bi}."))
+            if ds in attention_ds:
+                rules.append((rf"^input_blocks\.{idx}\.1\.",
+                              rf"down_attn_{bi}."))
+            idx += 1
+            bi += 1
+        if level != len(channel_mult) - 1:
+            rules.append((rf"^input_blocks\.{idx}\.0\.op\.",
+                          rf"downsample_{level}."))
+            idx += 1
+            ds *= 2
+    j = 0
+    for level in reversed(range(len(channel_mult))):
+        for i in range(num_res_blocks + 1):
+            rules.append((rf"^output_blocks\.{j}\.0\.", rf"up_{j}."))
+            li = 1
+            if ds in attention_ds:
+                rules.append((rf"^output_blocks\.{j}\.{li}\.",
+                              rf"up_attn_{j}."))
+                li += 1
+            if level and i == num_res_blocks:
+                rules.append((rf"^output_blocks\.{j}\.{li}\.conv\.",
+                              rf"upsample_{level}."))
+                ds //= 2
+            j += 1
+    return rules + _RESBLOCK_RULES
+
+
+TRANSFORMER_RULES: List[Tuple[str, str]] = [
+    # DDIMWithTransformer (transformer.py:57-137); block internals:
+    # MultiheadAttention in_proj/out_proj handled by _convert_leaf,
+    # ffn Sequential(Linear, ReLU, Linear), post-norms
+    (r"^time_embed\.0\.", r"time_embed_0."),
+    (r"^time_embed\.2\.", r"time_embed_2."),
+    *_listify("input_blocks", "output_blocks"),
+    (r"\.ffn\.0\.", r".ffn_0."),
+    (r"\.ffn\.2\.", r".ffn_2."),
+    (r"^out\.1\.", r"out_1."),
 ]
 
 VGG16_RULES: List[Tuple[str, Optional[str]]] = [

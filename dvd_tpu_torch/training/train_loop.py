@@ -39,7 +39,7 @@ from dvd_tpu_torch.config import DvDConfig
 from dvd_tpu_torch.data.device_aug import augment_batch, jitter_factors
 from dvd_tpu_torch.evaluation.pipeline import DewarpPipeline
 from dvd_tpu_torch.models.u2net import seg_pyramid_to_latent
-from dvd_tpu_torch.models.vgg import c20_for_dit
+from dvd_tpu_torch.models.vgg import c20_for_dit, c20_for_unet
 from dvd_tpu_torch.ops.resize import resize_bilinear
 from dvd_tpu_torch.training import checkpoint as ckpt
 from dvd_tpu_torch.training.train_state import (TrainState, create_train_state,
@@ -59,7 +59,9 @@ def build_device_batch(pipe: DewarpPipeline, raw: Dict[str, torch.Tensor],
     Streams follow the reference's flags (``train_util.py:275-304``): with
     ``use_gt_mask`` neither the seg pyramid nor the line stream is made;
     the line stream also needs ``use_line_mask``; ``train_VGG=False`` adds
-    the VGG features as ``src_feat`` (f32, from the f32 source)."""
+    the VGG features as ``src_feat`` (f32, from the f32 source).  An
+    alternative denoiser takes the VGG's 64-ch ``c20_for_unet`` plane as
+    its ``src_feat`` and no other stream."""
     m = pipe.cfg.model
     src = raw["source_image"]
     if src.dtype == torch.uint8:
@@ -82,6 +84,9 @@ def build_device_batch(pipe: DewarpPipeline, raw: Dict[str, torch.Tensor],
         "flow_inter": flow_inter.contiguous(),
         "mask": torch.ones((src.shape[0], h, h, 1), device=src.device),
     }
+    if not pipe.is_dit:
+        batch["src_feat"] = c20_for_unet(pipe.vgg(y512), latent)
+        return batch
     if not m.use_gt_mask:
         per = m.perception_size
         xa = resize_bilinear(y512, (per, per), True).to(pipe.dtype)
@@ -148,7 +153,7 @@ def train(cfg: DvDConfig, data_iter: Iterator[Dict],
           max_steps: Optional[int] = None, device="cuda",
           logger: Optional[KVLogger] = None,
           spans: Optional[Callable] = None) -> TrainState:
-    """Train the DiT on ``data_iter``'s batches until it ends or
+    """Train the denoiser on ``data_iter``'s batches until it ends or
     ``max_steps`` steps are done; returns the final state (also saved to
     ``workspace_dir/name``).  Weights are drawn from ``train.seed``, then
     the converted weight files found at ``cfg.paths`` are loaded over them

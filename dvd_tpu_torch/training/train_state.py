@@ -23,6 +23,13 @@ How the step follows the JAX one:
 - gradients are scaled by the mean sampler weight before clipping;
   parameters that received no gradient (the dead DiT blocks) get zeros,
   so Adam leaves them unchanged and EMA still runs over them.
+
+The alternative denoisers (``train_mode`` ``stage_1``,
+``stage_1_transformer``, ``stage_1_doctr``) train through
+``losses.plain_masked_mse`` instead (``dvd_tpu``'s ``alt_loss_fn``,
+reference train_util.py:350-366): one model call on the batch's VGG
+``src_feat`` from a zero ``init_flow``, no rollout, no BN statistics, no
+pyramid hoist.  ``sr`` and ``trg_feat`` raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -37,8 +44,9 @@ from dvd_tpu_torch.config import DvDConfig
 from dvd_tpu_torch.diffusion import losses as L
 from dvd_tpu_torch.diffusion.schedule import DiffusionSchedule
 from dvd_tpu_torch.evaluation.pipeline import DTYPES
-from dvd_tpu_torch.models.dit import DiT, conditioning_pyramid_features
+from dvd_tpu_torch.models.dit import conditioning_pyramid_features
 from dvd_tpu_torch.models.layers import commit_batch_stats
+from dvd_tpu_torch.models.registry import check_driver_mode, is_dit_mode
 from dvd_tpu_torch.training import resample
 
 COND_KEYS = ("y512", "mask_cat", "mask_y512", "line_msk", "src_feat")
@@ -106,7 +114,8 @@ def make_optimizer(cfg: DvDConfig, params) -> Optimizer:
 @dataclasses.dataclass
 class TrainState:
     step: int
-    model: DiT                  # f32 parameters + SATRN BN running stats
+    model: torch.nn.Module      # the denoiser: f32 parameters (+ the DiT's
+                                # SATRN BN running stats)
     optimizer: Optimizer
     ema_params: Tuple[Dict[str, torch.Tensor], ...]   # one per EMA rate
     sampler_state: Optional[resample.LossSecondMomentState]
@@ -123,7 +132,8 @@ def check_trainable(cfg: DvDConfig) -> None:
                          "trained through; set quantize='none'")
 
 
-def create_train_state(cfg: DvDConfig, model: DiT) -> TrainState:
+def create_train_state(cfg: DvDConfig, model: torch.nn.Module
+                       ) -> TrainState:
     check_trainable(cfg)
     params = dict(model.named_parameters())
     sampler_state = None
@@ -151,9 +161,10 @@ def make_train_step(cfg: DvDConfig, sched: DiffusionSchedule,
       mask_cat   (B, 1, 512, 512)  document mask
       mask_y512  (B, 384, S, S)    seg pyramid conditioning (if present)
       line_msk   (B, 64, S, S)     text-line conditioning (if present)
-      src_feat   (B, 256, S, S)    VGG features (train_VGG=False only)
+      src_feat   (B, 256, S, S)    VGG features (train_VGG=False only;
+                                   an alternative denoiser's: (B, 64, S, S))
       flow64     (B, S, S, 2)      GT offsets at latent res
-      flow_inter (B, 512, 512, 2)  intermediate offsets
+      flow_inter (B, 512, 512, 2)  intermediate offsets (the DiT's only)
       mask       (B, 512, 512, 1)  loss mask
 
     ``generator`` (on the batch's device) draws t, the noise, the rollout's
@@ -162,6 +173,7 @@ def make_train_step(cfg: DvDConfig, sched: DiffusionSchedule,
     when given, is a context manager timing the stages ("rollout",
     "loss_backward", "optimizer_ema")."""
     check_trainable(cfg)
+    check_driver_mode(cfg.model.train_mode)
     span = spans or (lambda name: contextlib.nullcontext())
     ema_rates = cfg.train.ema_rates
     s = cfg.model.image_size
@@ -173,7 +185,7 @@ def make_train_step(cfg: DvDConfig, sched: DiffusionSchedule,
         return torch.autocast(device.type, dtype=compute,
                               enabled=compute != torch.float32)
 
-    def loss_fn(dit, batch, t, noise, rollout_noise, generator):
+    def dit_loss_fn(dit, batch, t, noise, rollout_noise, generator):
         dev = batch["flow64"].device
 
         def model_fn(x, tt, cond, *, init_flow, init_feat, seed_init_feat,
@@ -209,6 +221,24 @@ def make_train_step(cfg: DvDConfig, sched: DiffusionSchedule,
                 rollout_noise=rollout_noise, generator=generator, span=span)
         return L.composed_warp_loss(*args, init_feat if tv else None, *data,
                                     noise=noise, generator=generator)
+
+    def alt_loss_fn(model, batch, t, noise, rollout_noise, generator):
+        dev = batch["flow64"].device
+
+        def model_fn(x, tt, cond, *, init_flow):
+            with autocast(dev):
+                return model(x, tt, src_feat=cond["src_feat"],
+                             init_flow=init_flow)
+
+        b = batch["flow64"].shape[0]
+        return L.plain_masked_mse(
+            model_fn, sched, {"src_feat": batch["src_feat"]},
+            batch["flow64"], batch["mask"], t, noise=noise,
+            generator=generator,
+            init_flow=torch.zeros((b, s, s, 2), device=dev))
+
+    loss_fn = dit_loss_fn if is_dit_mode(cfg.model.train_mode) \
+        else alt_loss_fn
 
     def loss_and_grads(state: TrainState, batch: Dict[str, torch.Tensor],
                        generator: Optional[torch.Generator], *,

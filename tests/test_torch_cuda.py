@@ -519,6 +519,31 @@ def test_attention_head_dim_72(dev, dtype, bar):
                                atol=bar * max(1.0, want.float().abs().max().item()))
 
 
+@pytest.mark.parametrize("dtype,bar", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("b,h,t_,dh", [(8, 4, 4096, 32), (8, 4, 256, 96),
+                                       (8, 4, 64, 128), (8, 8, 1024, 32)])
+def test_attention_alt_denoiser_shapes(dev, dtype, bar, b, h, t_, dh):
+    """K1 at the alternative denoisers' shapes: the transformer denoiser's
+    4096 tokens and GeoTr2's 1024 at Dh 32, the UNet's AttentionBlock at
+    Dh 96 (zero-padded to the 128 instance, scale 1/sqrt(96)) and Dh 128,
+    q/k/v the split_heads views of one fused qkv projection."""
+    g = _gen()
+    qkv = torch.randn(b, t_, 3 * h * dh, generator=g).to(dev, dtype)
+    q, k, v = (z.view(b, t_, h, dh).transpose(1, 2)
+               for z in qkv.chunk(3, dim=-1))
+    padded = attention.launches_padded[dh]
+    before, (wgmma, f32) = attention.launches, _routes()
+    got = attention(q, k, v, dh ** -0.5)
+    assert attention.launches == before + 1 and got.shape == q.shape
+    assert _routes() == ((wgmma + 1, f32) if dtype == torch.bfloat16
+                         else (wgmma, f32 + 1))
+    assert attention.launches_padded[dh] == padded + (dh == 96)
+    want = attention_ref(q, k, v, dh ** -0.5)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=bar * max(1.0, want.float().abs().max().item()))
+
+
 def test_conv1x1_f32_ignores_tf32(dev):
     """``conv1x1_f32`` (U2NetP's ``outconv``, the line UNet's ``outc``) is
     an f32 matmul: the same bits with cuDNN's TF32 switch on and off, and

@@ -259,11 +259,12 @@ def test_nvcc_command_targets_sm90a(tmp_path):
 
 
 # modules the walk below must reach: the int8, corruption and scoring
-# slice among them
+# slice and the alternative denoisers among them
 PORT_MODULES = ("ops.quant", "data.corruptions", "native",
                 "evaluation.metrics", "evaluation.calibrate",
                 "evaluation.visualize", "cli.evaluate", "cli.benchmark",
-                "cli.run_sampling")
+                "cli.run_sampling", "models.registry",
+                "models.unet_denoiser", "models.transformer_denoiser")
 
 
 def test_port_imports_no_jax_flax_pil():

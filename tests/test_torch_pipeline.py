@@ -131,10 +131,10 @@ def test_unwarp_fixed_any_size():
 
 @pytest.mark.parametrize("override", [
     {"model": {"serve_cond_chunk": 2}},
-    {"model": {"train_mode": "stage_1_doctr"}},
+    {"model": {"train_mode": "sr"}},
     {"model": {"compute_dtype": "float16"}},
-    {"model": {"train_mode": "stage_1"}},
-    {"model": {"train_mode": "stage_1_transformer"}}])
+    {"model": {"train_mode": "trg_feat"}},
+    {"model": {"quantize": "fp8"}}])
 def test_unported_flags_raise(override):
     with pytest.raises(NotImplementedError):
         DewarpPipeline.create(tiny_config().replace(**override))
