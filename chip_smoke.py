@@ -179,6 +179,29 @@ exits non-zero -- nothing is caught):
             phase 4's and phase 4b's unwarped pages scored against their
             sources at equal size with MS-SSIM and the native LD/AD
             (readings: the weights are random).
+11. likelihood32  ``diffusion.likelihood.calc_bpd_loop`` at f32 on the
+            shipped DiT-S/2 (its conditioning hoisted out of the loop),
+            the 3-step cosine schedule, batch 2 at 512^2, each step's
+            noise pinned: total_bpd, vb, xstart_mse and mse card against
+            CPU within 1e-5 of max|ref|, both TF32 switches off; K1 and K2
+            launched (K2 all f32), the card's ms.
+12. dist1   a 1-process NCCL world through ``--multihost``'s code path
+            (``cli.run_training.init_from_env``, ``make_mesh``,
+            ``train(mesh=)``): 3 shipped train steps (batch 10, the
+            device-resident stand-in set) equal the plain ``train()``'s
+            bit for bit (parameters, BN statistics, EMA, AdamW moments,
+            the logged values; cuDNN's deterministic algorithms for both),
+            and ``run_benchmark(mesh="auto")`` over 8 stand-in pages
+            equals the plain run's coordinate maps bit for bit.
+13. dist2   two processes on cuda:0 over gloo (this script again, with
+            ``--dist2-worker``), DiT-S/2 at full width in f32, global batch
+            4, SATRN's BN in train mode, dropout off: one step at data=2,
+            model=2 and data=2 with FSDP, each against this process's step
+            on the global batch under train32's bars (loss relative 1e-4,
+            every gradient 1e-3 x max(1, max|g|)); serving 8 stand-in pages
+            at data=2 and model=2 against this process's coordinate maps
+            within slice32's 1e-3; each layout's launches and a second
+            step's ms (a reading: gloo on one card is not a rate).
 
 The line before the last is the per-kernel JSON record (every kernel and
 route, each with the launches of the run that drives it: K1-K4 from the
@@ -234,6 +257,7 @@ TOL = {
     "train_loss_rel": 1e-4,    # f32 train step, card vs CPU, relative
     "train_grad": 1e-3,        # every gradient, x max(1, max|g|)
     "train_points": 1e-4,      # the loss warp's [-1, 1] points, card vs CPU
+    "likelihood": 1e-5,        # calc_bpd_loop's terms, card vs CPU, x max|ref|
     "augment": 1e-5,           # augment_batch card vs CPU, same batch and
                                # factors (the warp's bar against dvd_tpu)
 }
@@ -2036,6 +2060,15 @@ def _train_card_vs_cpu(cfg, tag: str) -> dict:
     return counts
 
 
+def _cells(img, grid):
+    """The bilinear cell (x, y floor in pixels) of each [-1, 1] point."""
+    from dvd_tpu_torch.ops.kernels.grid_sample import unnormalize
+
+    h, w = img.shape[-2:]
+    return torch.stack([torch.floor(unnormalize(grid[..., 0], w)),
+                        torch.floor(unnormalize(grid[..., 1], h))], -1)
+
+
 @contextlib.contextmanager
 def _loss_warp_points(record: dict, dev: str):
     """While open, the loss warp's backward (K4 on the card, its twin on
@@ -2054,21 +2087,14 @@ def _loss_warp_points(record: dict, dev: str):
     other point, and the forward, stay the CPU's own.  The points
     themselves are held to ``train_points``."""
     from dvd_tpu_torch.ops import grid_sample as gs
-    from dvd_tpu_torch.ops.kernels.grid_sample import unnormalize
-
     kernel = gs.gather_bilinear_grad
 
-    def cells(img, grid):
-        h, w = img.shape[-2:]
-        return torch.stack([torch.floor(unnormalize(grid[..., 0], w)),
-                            torch.floor(unnormalize(grid[..., 1], h))], -1)
-
     def on_card(img, grid, ct, padding_mode="zeros"):
-        record["grid"], record["cells"] = grid.cpu(), cells(img, grid).cpu()
+        record["grid"], record["cells"] = grid.cpu(), _cells(img, grid).cpu()
         return kernel(img, grid, ct, padding_mode)
 
     def on_cpu(img, grid, ct, padding_mode="zeros"):
-        crossed = (cells(img, grid) != record["cells"]).any(-1, keepdim=True)
+        crossed = (_cells(img, grid) != record["cells"]).any(-1, keepdim=True)
         record["max_d"] = (grid - record["grid"]).abs().max().item()
         record["crossed"] = int(crossed.sum())
         record["n"] = crossed.numel()
@@ -3613,11 +3639,481 @@ def phase_score(state):
 
 
 # ---------------------------------------------------------------- main
+# ---------------------------------------------------------------- phases 11-13
+def phase_likelihood32(state):
+    """``calc_bpd_loop`` at f32 on the shipped DiT-S/2 (its conditioning
+    hoisted out of the loop, as serving hoists it), batch 2 at 512^2,
+    each step's noise pinned: card against CPU."""
+    from dvd_tpu_torch.config import default_config
+    from dvd_tpu_torch.diffusion import gaussian as G
+    from dvd_tpu_torch.diffusion.likelihood import calc_bpd_loop
+    from dvd_tpu_torch.evaluation.pipeline import DewarpPipeline
+    from dvd_tpu_torch.utils.grids import base_grid
+
+    cfg = default_config().replace(model={"compute_dtype": "float32"})
+    m, b = cfg.model, 2
+    s = m.image_size
+    gen = torch.Generator().manual_seed(SEED + 30)
+    src = _page(b, m.source_size, m.source_size, gen)
+    # x_0: a backward map in [-1, 1], the identity grid moved smoothly
+    x0 = ((base_grid(s, s) + _smooth_flow(b, s, gen)) * 2 - 1).clamp(-1, 1)
+    x0 = x0.permute(0, 3, 1, 2).contiguous()
+    noise = torch.randn((cfg.diffusion.diffusion_steps,) + tuple(x0.shape),
+                        generator=gen)
+    pipes = {dev: DewarpPipeline.create(
+        cfg, dev, generator=torch.Generator().manual_seed(SEED + 31))
+        for dev in ("cpu", "cuda")}
+    shift = _mask_logit_shift(pipes["cpu"], src)
+    log(f"[likelihood32] cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
+        f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
+    if torch.backends.cudnn.allow_tf32 \
+            or torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("likelihood32 runs with both TF32 switches off")
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        pipe = pipes[dev]
+        with torch.no_grad():
+            pipe.seg.msk.outconv.bias += shift
+        T = pipe.sched.num_timesteps
+        with torch.inference_mode():
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                reset_launches()
+            t0 = time.perf_counter()
+            cond, init_flow, init_feat = pipe.build_conditioning(src.to(dev))
+            cond = pipe._hoist_stream_tokens(pipe._hoist_pyramid(cond))
+
+            def denoise(x_t, t):
+                pred, _ = pipe.model_fn(
+                    x_t.permute(0, 2, 3, 1).contiguous(),
+                    G.model_t(pipe.sched, t), cond, init_flow=init_flow,
+                    init_feat=init_feat, seed_init_feat=t == T - 1,
+                    remap_timesteps=True)
+                return pred.permute(0, 3, 1, 2)
+
+            out = calc_bpd_loop(denoise, pipe.sched, x0.to(dev), None,
+                                noise=noise.to(dev))
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                counts = dict(read_launches(),
+                              attention_routes=routes("attention"),
+                              conv3x3_routes=routes("conv3x3"))
+                check_conv_route("likelihood32", torch.float32)
+        runs[dev] = {k: v.cpu() for k, v in out.items()}
+        log(f"[likelihood32] {dev}: {m.dit_variant} float32, batch {b}, "
+            f"{m.source_size}^2, {T}-step {cfg.diffusion.noise_schedule} "
+            f"schedule: calc_bpd_loop in {time.perf_counter() - t0:.2f} s "
+            f"(outconv bias shift {shift:+.3f})")
+    del pipes
+    log(f"[likelihood32] card: {ms:.1f} ms for the conditioning and the "
+        f"{T}-step bound ({state['label']}); kernel launches {counts}")
+    if counts["attention"] <= 0 or counts["conv3x3"] <= 0:
+        raise AssertionError(f"K1 or K2 did not launch: {counts}")
+    c, p = runs["cuda"], runs["cpu"]
+    log(f"[likelihood32] CPU: total_bpd {p['total_bpd'].tolist()}, prior "
+        f"{p['prior_bpd'].tolist()}, vb by t {p['vb'].tolist()}")
+    for k in ("total_bpd", "vb", "xstart_mse", "mse"):
+        bar = TOL["likelihood"] * p[k].abs().max().item()
+        err = (c[k] - p[k]).abs().max().item()
+        log(f"[likelihood32] {k} card vs CPU: max |d| {err:.3e} (bar "
+            f"{TOL['likelihood']:.0e} x max|ref| = {bar:.3e}) "
+            f"{'ok' if err <= bar else 'FAIL'}")
+        if not (math.isfinite(err) and err <= bar):
+            raise AssertionError(f"likelihood32 {k}: {err:.3e} > {bar:.3e}")
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+@contextlib.contextmanager
+def _deterministic_cudnn():
+    """cuDNN's deterministic algorithms while open (the trainable conv's
+    backward takes cuDNN's): two runs of one step then agree bit for
+    bit."""
+    old = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, \
+            torch.backends.cudnn.benchmark = old
+
+
+def phase_dist1(state):
+    """A 1-process NCCL world through the ``--multihost`` code path
+    (``cli.run_training.init_from_env``, ``make_mesh``, ``train(mesh=)``):
+    3 shipped train steps equal the plain ``train()``'s bit for bit, and
+    ``run_benchmark(mesh="auto")`` over stand-in pages equals the plain
+    run bit for bit: an all-reduce over one rank is the identity."""
+    import torch.distributed as dist
+
+    from dvd_tpu_torch.cli.run_training import (device_resident_iterator,
+                                                init_from_env)
+    from dvd_tpu_torch.config import default_config
+    from dvd_tpu_torch.evaluation.driver import run_benchmark
+    from dvd_tpu_torch.evaluation.pipeline import DewarpPipeline
+    from dvd_tpu_torch.parallel.mesh import make_mesh
+    from dvd_tpu_torch.training.checkpoint import unsharded_state
+    from dvd_tpu_torch.training.train_loop import train
+
+    steps = 3
+    ds = StandInRawPages(TRAIN_SET, SEED + 8)
+    pages, _ = _stand_in_dataset(8, SEED + 41, 512, sides=(500, 900))
+    runs, maps = {}, {}
+    with tempfile.TemporaryDirectory() as ws, _deterministic_cudnn():
+        for world in (False, True):
+            cfg = default_config().replace(
+                train={"save_interval": 10 ** 9},
+                paths={"workspace_dir": os.path.join(ws, str(world))})
+            device, mesh = "cuda", None
+            if world:
+                os.environ.update(MASTER_ADDR="127.0.0.1",
+                                  MASTER_PORT=str(_free_port()), RANK="0",
+                                  WORLD_SIZE="1", LOCAL_RANK="0")
+                device = init_from_env("cuda")
+                mesh = make_mesh(cfg.parallel.data_axis,
+                                 cfg.parallel.model_axis)
+                log(f"[dist1] world: backend {dist.get_backend()}, "
+                    f"{dist.get_world_size()} rank on {device}, mesh "
+                    f"{mesh.shape}")
+            try:
+                data = device_resident_iterator(cfg, ds, SEED + 8, device)
+                logger = _row_logger()
+                torch.cuda.synchronize()
+                reset_launches()
+                t0 = time.perf_counter()
+                st = train(cfg, data, max_steps=steps, device=device,
+                           logger=logger, mesh=mesh)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                counts = read_launches()
+                runs[world] = (unsharded_state(st), logger.rows)
+                log(f"[dist1] {'NCCL world' if world else 'plain'} train(): "
+                    f"{steps} steps of the shipped config (batch "
+                    f"{cfg.train.batch_size}) in {wall:.2f} s, pipeline "
+                    f"set-up included ({state['label']}); launches {counts}")
+                if min(counts[k] for k in TRAIN_KERNELS) <= 0:
+                    raise AssertionError(f"a kernel did not launch: {counts}")
+                pipe = DewarpPipeline.create(
+                    cfg, device, generator=torch.Generator().manual_seed(
+                        SEED + 42))
+                out = os.path.join(ws, f"serve{world}")
+                reset_launches()
+                stats = run_benchmark(
+                    pipe, pages, out, batch_size=cfg.data.eval_device_batch,
+                    seed=SEED, save_outputs=False, save_coord_maps=True,
+                    mesh="auto" if world else None)
+                counts = read_launches()
+                if stats["images"] != len(pages) or min(
+                        counts[k] for k in ("attention", "conv3x3",
+                                            "gather_bilinear", "unwarp")) <= 0:
+                    raise AssertionError(f"serving: {stats}, {counts}")
+                maps[world] = {n: np.load(os.path.join(out, "dewarped_pred",
+                                                       n))
+                               for n in sorted(os.listdir(
+                                   os.path.join(out, "dewarped_pred")))}
+            finally:
+                if world:
+                    dist.destroy_process_group()
+                    for key in ("MASTER_ADDR", "MASTER_PORT", "RANK",
+                                "WORLD_SIZE", "LOCAL_RANK"):
+                        os.environ.pop(key, None)
+    ((m0, o0, e0), rows0), ((m1, o1, e1), rows1) = runs[False], runs[True]
+    same = all(torch.equal(m0[k], m1[k]) for k in m0) and all(
+        torch.equal(a[k], b[k]) for a, b in zip(e0, e1) for k in a) and all(
+        torch.equal(x[k], y[k]) for i in o0["adamw"]["state"]
+        for x, y in ((o0["adamw"]["state"][i], o1["adamw"]["state"][i]),)
+        for k in x)
+    log(f"[dist1] plain vs NCCL world: logged loss {rows0[0]['loss']!r} vs "
+        f"{rows1[0]['loss']!r}; parameters, BN statistics, EMA and AdamW "
+        f"moments after {steps} steps "
+        f"{'equal bit for bit' if same else 'DIFFER'}")
+    def logged(rows):       # the logged values, but for the rate
+        return [{k: v for k, v in r.items() if k != "samples_per_sec"}
+                for r in rows]
+
+    if not same or logged(rows0) != logged(rows1):
+        raise AssertionError("dist1: the 1-rank world's training differs")
+    same_maps = maps[False].keys() == maps[True].keys() and all(
+        np.array_equal(maps[False][n], maps[True][n]) for n in maps[False])
+    log(f"[dist1] run_benchmark mesh=None vs mesh='auto' over {len(pages)} "
+        f"stand-in pages: {len(maps[True])} coordinate maps "
+        f"{'equal bit for bit' if same_maps else 'DIFFER'}")
+    if not same_maps:
+        raise AssertionError("dist1: the 1-rank world's serving differs")
+
+
+# dist2's layouts: (name, data, model, fsdp)
+DIST2_STEPS = (("data2", 2, 1, False), ("model2", 1, 2, False),
+               ("data2_fsdp", 2, 1, True))
+DIST2_SERVE = (("data2", 2, 1), ("model2", 1, 2))
+
+
+def _dist2_cfg():
+    from dvd_tpu_torch.config import default_config
+
+    return default_config().replace(model={"compute_dtype": "float32"},
+                                    data={"eval_device_batch": 4})
+
+
+def _dist2_net(cfg):
+    """DiT-S/2 from one seed (the zero-initialised layers drawn small),
+    dropout off, f32 on the card."""
+    from dvd_tpu_torch.models.layers import seeded_init_
+    from dvd_tpu_torch.models.registry import create_model
+
+    net = seeded_init_(create_model(cfg), torch.Generator().manual_seed(
+        SEED + 43))
+    _no_dropout(net)
+    return net.cuda()
+
+
+@contextlib.contextmanager
+def _k4_points(record: dict, ref=None):
+    """While open, the loss warp's K4 (``warp_const_src``'s backward,
+    patched here, never in the package) records its [-1, 1] points in
+    ``record["points"]``; given ``ref`` (the points one process's K4 saw
+    for these rows), it takes ref's point wherever its own lies in another
+    bilinear cell, and counts them in ``record["crossed"]``.  The
+    derivative jumps at a cell edge, by the whole edge value at the
+    'zeros' border (``_loss_warp_points``); a layout's rounding moves the
+    points by ~1e-7, so now and then one crosses, a measure-zero event
+    that is no fault of either side."""
+    from dvd_tpu_torch.ops import grid_sample as gs
+    kernel = gs.gather_bilinear_grad
+
+    def patched(img, grid, ct, padding_mode="zeros"):
+        if ref is not None:
+            other = ref.to(grid.device)
+            crossed = (_cells(img, grid) != _cells(img, other)).any(
+                -1, keepdim=True)
+            record["max_d"] = (grid - other).abs().max().item()
+            record["crossed"] = int(crossed.sum())
+            grid = torch.where(crossed, other, grid)
+        record["points"] = grid.cpu()
+        return kernel(img, grid, ct, padding_mode)
+
+    gs.gather_bilinear_grad = patched
+    try:
+        yield
+    finally:
+        gs.gather_bilinear_grad = kernel
+
+
+def _dist2_worker(rank: int, port: int, spec_path: str, out_path: str):
+    """One rank of dist2's world: gloo over cuda:0, every layout of
+    ``DIST2_STEPS`` and ``DIST2_SERVE`` in turn; rank 0 writes the
+    results."""
+    import torch.distributed as dist
+
+    from dvd_tpu_torch.evaluation.driver import run_benchmark
+    from dvd_tpu_torch.evaluation.pipeline import DewarpPipeline
+    from dvd_tpu_torch.ops.kernels import build
+    from dvd_tpu_torch.parallel.mesh import (batch_slice, init_distributed,
+                                             make_mesh)
+    from dvd_tpu_torch.training.train_state import (create_train_state,
+                                                    make_train_step,
+                                                    shard_train_state)
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    build.load_library()            # built by the parent
+    init_distributed("gloo", "cuda:0", rank=rank, world_size=2,
+                     init_method=f"tcp://127.0.0.1:{port}")
+    spec = torch.load(spec_path, weights_only=False)
+    cfg = _dist2_cfg()
+    results = {"backend": dist.get_backend()}
+    try:
+        for name, data, model, fsdp in DIST2_STEPS:
+            mesh = make_mesh(data, model)
+            net = _dist2_net(cfg)
+            st = shard_train_state(cfg, create_train_state(cfg, net), mesh,
+                                   fsdp)
+            step = make_train_step(cfg, spec["sched"], mesh=mesh)
+            n = 4 // data
+            rows = batch_slice(mesh, n)
+            batch = {k: v[rows].cuda() for k, v in spec["batch"].items()}
+            pins = {k: v.cuda() for k, v in spec["pins"].items()}
+            record = {}
+            opt_step = st.optimizer.step
+
+            def recording(grads, opt_step=opt_step, record=record):
+                record["grads"] = [g.clone() for g in grads]
+                return opt_step(grads)
+
+            st.optimizer.step = recording
+            torch.cuda.synchronize()
+            reset_launches()
+            k4 = {}
+            with _k4_points(k4, spec["points"][rows]):
+                st, m = step(st, batch, None, **pins)
+            torch.cuda.synchronize()
+            counts = dict(read_launches(), attention_by_dh=attention_by_dh())
+            st.optimizer.step = opt_step
+            t0 = time.perf_counter()
+            step(st, batch, None, **pins)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            lay = st.layout
+            grads = {k: lay.unsharded(k, g).cpu()
+                     for k, g in zip(lay.held, record["grads"])}
+            results[name] = dict(loss=m["loss"].item(), grads=grads,
+                                 launches=counts, step_ms=ms,
+                                 sharded=len(lay.placements),
+                                 crossed=k4["crossed"], max_d=k4["max_d"])
+            del st, step, net
+        pages, _ = _stand_in_dataset(8, SEED + 44, 512, sides=(500, 900))
+        for name, data, model in DIST2_SERVE:
+            mesh = make_mesh(data, model)
+            pipe = DewarpPipeline.create(
+                cfg, "cuda:0", generator=torch.Generator().manual_seed(
+                    SEED + 45))
+            out = os.path.join(spec["workdir"], f"serve_{name}")
+            reset_launches()
+            stats = run_benchmark(pipe, pages, out, batch_size=4, seed=SEED,
+                                  save_outputs=False, save_coord_maps=True,
+                                  mesh=mesh)
+            results[f"serve_{name}"] = dict(stats=stats, out=out,
+                                            launches=read_launches())
+            del pipe
+        dist.barrier()
+        if rank == 0:
+            torch.save(results, out_path)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_dist2(state):
+    """Two processes on cuda:0 over gloo (NCCL refuses two ranks on one
+    device), DiT-S/2 at full width in f32, global batch 4 (2 a rank at
+    data=2), SATRN's BN in train mode, dropout off: one step at data=2,
+    model=2 and data=2 with FSDP, each against this process's step on the
+    global batch (train32's bars); serving at data=2 and model=2 against
+    this process's run (slice32's bar on the flows)."""
+    from dvd_tpu_torch.evaluation.driver import run_benchmark
+    from dvd_tpu_torch.evaluation.pipeline import DewarpPipeline
+    from dvd_tpu_torch.training.train_loop import build_device_batch
+    from dvd_tpu_torch.training.train_state import (create_train_state,
+                                                    make_train_step)
+
+    cfg = _dist2_cfg()
+    m = cfg.model
+    gen = torch.Generator().manual_seed(SEED + 46)
+    raw = _wire_batch(4, gen)
+    pins = {"t": torch.tensor([0, 1, 2, 2]),
+            "noise": torch.randn((4, m.image_size, m.image_size, 2),
+                                 generator=gen)}
+    pins["rollout_noise"] = torch.randn(pins["noise"].shape, generator=gen)
+    pipe = DewarpPipeline.create(
+        cfg, "cuda", generator=torch.Generator().manual_seed(SEED + 47),
+        train=True)
+    with torch.no_grad():
+        pipe.seg.msk.outconv.bias += _mask_logit_shift(
+            pipe, raw["source_image"])
+    batch = build_device_batch(pipe, {k: v.cuda() for k, v in raw.items()},
+                               m.image_size)
+    spec = {"batch": {k: v.cpu() for k, v in batch.items()}, "pins": pins,
+            "sched": pipe.sched, "workdir": state["workdir"]}
+    del pipe
+    # this process's step on the global batch
+    net = _dist2_net(cfg)
+    st = create_train_state(cfg, net)
+    step = make_train_step(cfg, spec["sched"])
+    k4 = {}
+    with _k4_points(k4):
+        grads, _, metrics = step.loss_and_grads(
+            st, batch, None, **{k: v.cuda() for k, v in pins.items()})
+    spec["points"] = k4["points"]
+    ref_loss = metrics["loss"].item()
+    ref = {k: g.cpu() for k, g in zip(st.named_params(), grads)}
+    del st, step, net, grads
+    # this process's serving run
+    pages, _ = _stand_in_dataset(8, SEED + 44, 512, sides=(500, 900))
+    pipe = DewarpPipeline.create(
+        cfg, "cuda", generator=torch.Generator().manual_seed(SEED + 45))
+    one = os.path.join(state["workdir"], "serve_one")
+    run_benchmark(pipe, pages, one, batch_size=4, seed=SEED,
+                  save_outputs=False, save_coord_maps=True, mesh=None)
+    del pipe
+    spec_path = os.path.join(state["workdir"], "dist2_spec.pt")
+    out_path = os.path.join(state["workdir"], "dist2_out.pt")
+    torch.save(spec, spec_path)
+    port = _free_port()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--dist2-worker",
+         str(r), str(port), spec_path, out_path]) for r in range(2)]
+    try:
+        rcs = [p.wait(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if rcs != [0, 0]:
+        raise AssertionError(f"dist2 world exited {rcs}")
+    res = torch.load(out_path, weights_only=False)
+    log(f"[dist2] the world (2 processes on cuda:0, backend "
+        f"{res['backend']}) ran in {time.perf_counter() - t0:.1f} s "
+        f"({state['label']})")
+    failed = []
+    for name, data, model, fsdp in DIST2_STEPS:
+        r = res[name]
+        rel = abs(r["loss"] - ref_loss) / max(abs(ref_loss), 1e-30)
+        ratios = []
+        for k, want in ref.items():
+            bar = TOL["train_grad"] * max(1.0, want.abs().max().item())
+            err = (r["grads"][k] - want).abs().max().item()
+            ratios.append((err / bar if math.isfinite(err) else math.inf, k))
+        ratios.sort(reverse=True)
+        log(f"[dist2] {name} (data={data} model={model} fsdp={fsdp}, "
+            f"{r['sharded']} parameters sharded): loss {r['loss']:.8f} vs "
+            f"one process {ref_loss:.8f}, relative {rel:.3e} (bar "
+            f"{TOL['train_loss_rel']:.0e}); {len(ref)} gradients against "
+            f"{TOL['train_grad']:.0e} x max(1, max|g|), the closest "
+            + ", ".join(f"{k} at {x:.3f}" for x, k in ratios[:3])
+            + f" of the bar; the loss warp's points vs one process's: max "
+            f"|d| {r['max_d']:.3e}, {r['crossed']} in another cell (K4 "
+            f"took one process's there); a second step {r['step_ms']:.1f} "
+            f"ms on rank 0 (a reading: gloo on one card); rank 0's "
+            f"launches in the first {r['launches']}")
+        if not rel <= TOL["train_loss_rel"] or ratios[0][0] > 1:
+            failed.append(name)
+        if min(r["launches"][k] for k in TRAIN_KERNELS) <= 0:
+            failed.append(f"{name}: a kernel did not launch")
+    for name, data, model in DIST2_SERVE:
+        r = res[f"serve_{name}"]
+        if r["stats"]["images"] != len(pages):
+            raise AssertionError(f"dist2 serve {name}: {r['stats']}")
+        worst = 0.0
+        for f in sorted(os.listdir(os.path.join(one, "dewarped_pred"))):
+            a = np.load(os.path.join(r["out"], "dewarped_pred", f))
+            b = np.load(os.path.join(one, "dewarped_pred", f))
+            worst = max(worst, float(np.abs(a - b).max()))
+        log(f"[dist2] serving {name}: {r['stats']['images']} pages, "
+            f"coordinate maps vs one process max |d| {worst:.3e} (bar "
+            f"{TOL['slice_flow']:.0e}); rank 0's launches {r['launches']}")
+        if not worst <= TOL["slice_flow"] or min(
+                r["launches"][k] for k in ("attention", "conv3x3",
+                                           "unwarp")) <= 0:
+            failed.append(f"serve {name}")
+    if failed:
+        raise AssertionError(f"dist2 failed: {failed}")
+
+
 PHASES = (phase_env, phase_kernels, phase_int8, phase_slice32,
           phase_slice_int8, phase_flags32, phase_alt32, phase_shipped,
           phase_shipped_int8, phase_shipped32, phase_flags, phase_alt,
           phase_train32, phase_flags_train32, phase_alt_train32, phase_train,
-          phase_probe, phase_dataset, phase_corrupt, phase_score)
+          phase_probe, phase_dataset, phase_corrupt, phase_score,
+          phase_likelihood32, phase_dist1, phase_dist2)
 
 
 def main(argv=None) -> int:
@@ -3628,7 +4124,14 @@ def main(argv=None) -> int:
                     help="run only these phases, by name (e.g. env,int8; "
                          "a phase needing an earlier one's state needs it "
                          "too) and print no result lines")
+    ap.add_argument("--dist2-worker", nargs=4, default=None,
+                    metavar=("RANK", "PORT", "SPEC", "OUT"),
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.dist2_worker:
+        rank, port, spec, out = args.dist2_worker
+        _dist2_worker(int(rank), int(port), spec, out)
+        return 0
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: chip_smoke.py runs on a GPU only")
     phases = PHASES

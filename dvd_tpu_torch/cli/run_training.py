@@ -8,6 +8,11 @@
     # checkpoints/synthetic_doc3d) and trained on through the same path
     python -m dvd_tpu_torch.cli.run_training --synthetic 64 --max_steps 100
 
+    # one process per device under torchrun (on the CPU: --device cpu,
+    # gloo); cfg.parallel lays out the (data, model) mesh
+    torchrun --nproc_per_node 2 -m dvd_tpu_torch.cli.run_training \
+        --multihost --synthetic 64 --max_steps 100
+
 Reading the datasets needs cv2 and h5py (imported when a file is read).
 With ``train.on_device_aug`` (the default) the loader ships each sample's
 composited image, mask and backward map, and the warp and jitter run on
@@ -29,16 +34,19 @@ from typing import Dict, Iterator
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 # the bytes a staged sample takes on the device: the image as uint8, the
 # mask and the flow as f32
 STAGED_BYTES_PER_PIXEL = 3 + 4 + 2 * 4
 
 
-def data_iterator(cfg, seed: int, device="cuda"):
+def data_iterator(cfg, seed: int, device="cuda", mesh=None):
     """The data pipeline for ``cfg.data.dataset_name``: the device-resident
     set when ``_device_dataset_ok``, else a :class:`PrefetchLoader` of
-    numpy batches.  ``train.batch_size`` is the per-process batch."""
+    numpy batches.  ``train.batch_size`` is the per-process batch; under a
+    ``mesh`` the loader takes the data index's stride of the epoch order
+    (the ranks of one model group read the same batches)."""
     from dvd_tpu_torch.data.doc3d import (Doc3DDataset, load_texture_list,
                                           make_doc3d_sample_list)
     from dvd_tpu_torch.data.doc_npz import (AugDocNpzDataset, DocNpzDataset,
@@ -73,16 +81,19 @@ def data_iterator(cfg, seed: int, device="cuda"):
         return device_resident_iterator(cfg, ds, seed, device)
     return PrefetchLoader(ds, batch_size=cfg.train.batch_size,
                           num_workers=cfg.data.n_threads, seed=seed,
-                          keys=keys)
+                          keys=keys,
+                          process_index=mesh.data_index if mesh else 0,
+                          process_count=mesh.data if mesh else 1)
 
 
 def _device_dataset_ok(cfg, ds) -> bool:
     """Stage the set on the device?  ``train.device_dataset``: "off" never,
     "auto" when its staged bytes fit ``train.device_dataset_max_gb``, "on"
-    always, raising when they do not fit.  (One process: the port has no
-    data parallelism yet.)"""
+    always, raising when they do not fit.  Never under more than one
+    process (each would stage the whole set), as ``dvd_tpu``."""
     mode = cfg.train.device_dataset
-    if mode == "off":
+    if mode == "off" or (dist.is_initialized()
+                         and dist.get_world_size() != 1):
         return False
     gb = len(ds.samples) * 512 * 512 * STAGED_BYTES_PER_PIXEL / 1e9
     ok = gb <= cfg.train.device_dataset_max_gb
@@ -178,6 +189,8 @@ def _run_segments(ap, args):
         child_base += ["--data_root", args.data_root]
     if args.synthetic:
         child_base += ["--synthetic", str(args.synthetic)]
+    if args.multihost:
+        child_base += ["--multihost"]
 
     seg = 0
     while True:
@@ -203,6 +216,20 @@ def _run_segments(ap, args):
         seg += 1
 
 
+def init_from_env(device: str = "cuda") -> str:
+    """Join the process group of a torchrun world from its ``RANK``,
+    ``WORLD_SIZE`` and ``LOCAL_RANK``: NCCL on ``cuda:LOCAL_RANK``, or gloo
+    where ``device`` is "cpu"; returns this process's device."""
+    from dvd_tpu_torch.parallel.mesh import init_distributed
+
+    if device == "cuda":
+        device = f"cuda:{int(os.environ['LOCAL_RANK'])}"
+    init_distributed("nccl" if device.startswith("cuda") else "gloo",
+                     device, rank=int(os.environ["RANK"]),
+                     world_size=int(os.environ["WORLD_SIZE"]))
+    return device
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--train_module", default="dvd")
@@ -218,7 +245,10 @@ def main(argv=None):
                          "checkpoints/synthetic_doc3d) and train on it "
                          "through the standard loader path")
     ap.add_argument("--multihost", action="store_true",
-                    help="multi-process training (not ported yet)")
+                    help="one process of a torchrun world: join the "
+                         "process group from RANK, WORLD_SIZE and "
+                         "LOCAL_RANK (NCCL on cuda:LOCAL_RANK; gloo with "
+                         "--device cpu)")
     ap.add_argument("--loader_seed", type=int, default=None,
                     help="epoch-order/augmentation seed for the data "
                          "loader only (default: --seed); lets resumed "
@@ -233,15 +263,20 @@ def main(argv=None):
                     help="torch device (default cuda; 'cpu' runs the plain "
                          "twins of the kernels)")
     args = ap.parse_args(argv)
-    if args.multihost:
-        raise NotImplementedError(
-            "--multihost: the port has no multi-process training yet "
-            "(DDP, ROADMAP.md Queue 1 item 6)")
     if args.segment_steps:
         return _run_segments(ap, args)
+    device = init_from_env(args.device) if args.multihost else args.device
+    try:
+        _train_main(args, device)
+    finally:
+        if args.multihost:
+            dist.destroy_process_group()
 
+
+def _train_main(args, device: str) -> None:
     from dvd_tpu_torch.cli.run_sampling import parse_overrides
     from dvd_tpu_torch.config import default_config
+    from dvd_tpu_torch.parallel.mesh import make_mesh
     from dvd_tpu_torch.training.train_loop import train
 
     over = parse_overrides(args.overrides)
@@ -259,19 +294,26 @@ def main(argv=None):
         # later real training runs
         root = (os.path.join(cfg.data.data_root, "synthetic")
                 if cfg.data.data_root else "checkpoints/synthetic_doc3d")
-        if cfg.data.dataset_name == "doc3d":
-            write_synthetic_doc3d(root, args.synthetic, seed=args.seed)
-        else:
-            write_synthetic_doc_npz(root, args.synthetic, seed=args.seed)
+        # every process writes the same seeded files; rank 0 alone, then
+        # the others wait for them
+        if not dist.is_initialized() or dist.get_rank() == 0:
+            if cfg.data.dataset_name == "doc3d":
+                write_synthetic_doc3d(root, args.synthetic, seed=args.seed)
+            else:
+                write_synthetic_doc_npz(root, args.synthetic, seed=args.seed)
+        if dist.is_initialized():
+            dist.barrier()
         cfg = cfg.replace(data={"data_root": root})
     if not cfg.train.on_device_aug and cfg.train.slim_wire:
         print("train.slim_wire is a JAX-package option: the port feeds the "
               "float wire", flush=True)
+    mesh = make_mesh(cfg.parallel.data_axis, cfg.parallel.model_axis)
     loader = data_iterator(cfg, args.loader_seed if args.loader_seed
-                           is not None else args.seed, args.device)
+                           is not None else args.seed, device, mesh)
     # the loader emits the key set its dataset's flag asks for, and
     # train() tells the two kinds apart by their keys
-    train(cfg, iter(loader), max_steps=args.max_steps, device=args.device)
+    train(cfg, iter(loader), max_steps=args.max_steps, device=device,
+          mesh=mesh)
 
 
 if __name__ == "__main__":

@@ -29,6 +29,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from dvd_tpu_torch.ops.grid_sample import warp
+from dvd_tpu_torch.parallel import comm
 
 LUMA = (0.299, 0.587, 0.114)
 
@@ -77,7 +78,7 @@ def jitter_factors(b: int, generator: torch.Generator, strength: float = 0.1
     each, uniform in [1 - s, 1 + s] (hue in [-s, s]), drawn in that order
     from ``generator`` on its device."""
     def u(lo, hi):
-        x = torch.rand((b,), generator=generator, device=generator.device)
+        x = comm.rand((b,), generator=generator, device=generator.device)
         return lo + (hi - lo) * x
 
     lo, hi = 1.0 - strength, 1.0 + strength

@@ -1,7 +1,7 @@
-"""Forward noising, the DDIM step and the model-facing timestep map (port
-of ``dvd_tpu/diffusion/gaussian.py``: ``q_sample``, x0-parameterised
-prediction, the eq. 12 DDIM update, reference
-``gaussian_diffusion.py:445-492``)."""
+"""Forward noising, the posterior mean, the DDIM step and the model-facing
+timestep map (port of ``dvd_tpu/diffusion/gaussian.py``: ``q_sample``,
+``q_posterior_mean``, the eps <-> x0 conversions, the eq. 12 DDIM update,
+reference ``gaussian_diffusion.py:250-268, 445-492``)."""
 
 from __future__ import annotations
 
@@ -18,6 +18,22 @@ def q_sample(sched: DiffusionSchedule, x_start: torch.Tensor,
     nd = x_start.dim()
     return sched.gather(sched.sqrt_alphas_cumprod, t, nd) * x_start \
         + sched.gather(sched.sqrt_one_minus_alphas_cumprod, t, nd) * noise
+
+
+def q_posterior_mean(sched: DiffusionSchedule, x_start: torch.Tensor,
+                     x_t: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """Mean of q(x_{t-1} | x_t, x_0)."""
+    nd = x_t.dim()
+    return sched.gather(sched.posterior_mean_coef1, t, nd) * x_start \
+        + sched.gather(sched.posterior_mean_coef2, t, nd) * x_t
+
+
+def predict_xstart_from_eps(sched: DiffusionSchedule, x_t: torch.Tensor,
+                            t: torch.Tensor, eps: torch.Tensor
+                            ) -> torch.Tensor:
+    nd = x_t.dim()
+    return sched.gather(sched.sqrt_recip_alphas_cumprod, t, nd) * x_t \
+        - sched.gather(sched.sqrt_recipm1_alphas_cumprod, t, nd) * eps
 
 
 def predict_eps_from_xstart(sched: DiffusionSchedule, x_t: torch.Tensor,

@@ -18,7 +18,8 @@ The loss is ``sum((target - f_new)^2) / sum(mask)`` over the
 
 Noise: each loss takes an optional explicit ``noise`` (and, for the
 rollout, ``rollout_noise``) tensor, else draws from ``generator`` on the
-flow's device.  Layout: flows and masks channel-last, as ``dvd_tpu``;
+flow's device (for the global batch under ``parallel.comm.batch_rows``).
+Layout: flows and masks channel-last, as ``dvd_tpu``;
 conditioning tensors NCHW, as the port's DiT takes them.
 """
 
@@ -35,6 +36,7 @@ from dvd_tpu_torch.diffusion.sampler import (ModelFn,
 from dvd_tpu_torch.diffusion.schedule import DiffusionSchedule
 from dvd_tpu_torch.ops.grid_sample import warp_const_src
 from dvd_tpu_torch.ops.resize import resize_bilinear
+from dvd_tpu_torch.parallel import comm
 from dvd_tpu_torch.utils.dtypes import at_least_f32
 from dvd_tpu_torch.utils.grids import base_grid
 
@@ -62,8 +64,17 @@ def _composed_terms(x_start_pm: torch.Tensor, model_output: torch.Tensor,
     f_new = warp_const_src(f_inter_pm.permute(0, 3, 1, 2), f_pred)
     num = ((target - f_new.permute(0, 2, 3, 1)) ** 2).sum((1, 2, 3))
     den_per = mask.sum((1, 2, 3))
+    return _masked_terms(num, den_per)
+
+
+def _masked_terms(num: torch.Tensor, den_per: torch.Tensor
+                  ) -> Dict[str, torch.Tensor]:
+    """The loss sum(num) / sum(den) and its parts: ``num`` and ``den`` (the
+    mask's sum, no gradient) let a data-parallel step normalise by the
+    global batch's mask."""
     mse = num.sum() / den_per.sum()
-    return {"mse": mse, "loss": mse,
+    return {"mse": mse, "loss": mse, "num": num.sum(),
+            "den": den_per.sum().detach(),
             "mse_per": num / den_per.clamp(min=1e-12)}
 
 
@@ -77,7 +88,7 @@ def _noise(like: torch.Tensor, noise: Optional[torch.Tensor],
            generator: Optional[torch.Generator]) -> torch.Tensor:
     if noise is not None:
         return noise.to(like.device, like.dtype)
-    return torch.randn(like.shape, generator=generator, device=like.device)
+    return comm.randn(like.shape, generator=generator, device=like.device)
 
 
 def composed_warp_loss(
@@ -171,7 +182,4 @@ def plain_masked_mse(
     target = _resize_hwc(x_start, h) * mask
     out = _resize_hwc(at_least_f32(out), h) * mask
     num = ((target - out) ** 2).sum((1, 2, 3))
-    den_per = mask.sum((1, 2, 3))
-    mse = num.sum() / den_per.sum()
-    return {"mse": mse, "loss": mse,
-            "mse_per": num / den_per.clamp(min=1e-12)}
+    return _masked_terms(num, mask.sum((1, 2, 3)))

@@ -25,6 +25,7 @@ import torch
 from dvd_tpu_torch.diffusion import gaussian as G
 from dvd_tpu_torch.diffusion.schedule import DiffusionSchedule
 from dvd_tpu_torch.ops.grid_sample import warp
+from dvd_tpu_torch.parallel import comm
 from dvd_tpu_torch.utils.grids import flow_to_grid
 
 # model_fn(x, t, cond, *, init_flow, init_feat, seed_init_feat,
@@ -60,7 +61,8 @@ def ddim_sample_loop(
 
     ``init_noise``: optional (n_batch*B, S, S, 2) x_T, hypothesis-major;
     otherwise x_T (and the per-step noise when eta > 0) is drawn from
-    ``generator`` on the flow's device."""
+    ``generator`` on the flow's device (for the global batch under
+    ``parallel.comm.batch_rows``)."""
     b = init_flow.shape[0]
     s = latent_size
     dev = init_flow.device
@@ -72,7 +74,7 @@ def ddim_sample_loop(
     if init_noise is not None:
         x = init_noise.to(dev, torch.float32)
     else:
-        x = torch.randn((nb, s, s, 2), generator=generator, device=dev)
+        x = comm.randn((nb, s, s, 2), generator=generator, device=dev)
 
     T = sched.num_timesteps
     pred_flow, feat = fl, ft
@@ -89,7 +91,7 @@ def ddim_sample_loop(
                                  remap_timesteps=True)
         noise = None
         if eta != 0.0:
-            noise = torch.randn(x.shape, generator=generator, device=dev)
+            noise = comm.randn(x.shape, generator=generator, device=dev)
         step = G.ddim_step(sched, x, t, pred_x0, eta=eta, noise=noise,
                            clip_denoised=clip_denoised)
         x, pred_flow = step.sample, step.pred_xstart
@@ -127,7 +129,7 @@ def rollout_states_for_training(
     s = latent_size
     dev = init_flow.device
     x = noise.to(dev, torch.float32) if noise is not None else \
-        torch.randn((b, s, s, 2), generator=generator, device=dev)
+        comm.randn((b, s, s, 2), generator=generator, device=dev)
     ti = t.long()
     out_flow, out_feat = init_flow, init_feat
     cur_flow, cur_feat = init_flow, init_feat

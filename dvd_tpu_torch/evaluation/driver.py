@@ -21,6 +21,15 @@ with device batches:
 first batch (which pays the kernel build and the first launches), and
 ``stage_seconds_per_batch`` comes from synchronised re-runs of the last
 batch, outside the throughput window.
+
+Over a (data, model) mesh of ``torch.distributed`` ranks
+(``parallel/mesh.py``) each data index dewarps its rows of every global
+batch (x_T drawn for the global batch from the batch's generator and
+sliced, ``parallel.comm.batch_rows``), and the model axis shards the DiT
+and its SATRN decoder by the tensor-parallel rules (the aux nets stay
+whole, as in ``dvd_tpu``'s driver); a page's outputs are written by the
+rank of model index 0 that holds it, and rank 0 writes ``run_stats.json``
+with the image count summed over the data group.
 """
 
 from __future__ import annotations
@@ -35,10 +44,13 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from dvd_tpu_torch.config import DvDConfig
 from dvd_tpu_torch.evaluation.pipeline import DewarpPipeline
 from dvd_tpu_torch.ops.kernels.unwarp import unwarp
+from dvd_tpu_torch.parallel import comm
+from dvd_tpu_torch.parallel.mesh import batch_slice, make_mesh, shard_params
 
 
 def save_png(path: str, arr: np.ndarray) -> None:
@@ -94,24 +106,59 @@ def batch_generator(device: torch.device, seed: int,
         (seed * 1_000_003 + bi) % (2 ** 63))
 
 
+def serving_mesh(pipe: DewarpPipeline, mesh="auto"):
+    """The mesh ``run_benchmark`` serves on: ``mesh`` itself, or for
+    "auto" ``make_mesh(parallel.data_axis, parallel.model_axis)`` under an
+    initialised process group or a model axis > 1 (``make_mesh`` asserts
+    that the layout covers the ranks), else None (one process, unsharded).
+    A model axis > 1 TP-shards ``pipe.dit`` in place, once."""
+    par = pipe.cfg.parallel
+    if mesh == "auto":
+        mesh = make_mesh(par.data_axis, par.model_axis) \
+            if dist.is_initialized() or par.model_axis != 1 else None
+    if mesh is not None and mesh.model > 1 \
+            and getattr(pipe.dit, "tp_mesh", None) is None:
+        shard_params(pipe.dit, mesh)
+        pipe.dit.tp_mesh = mesh
+    return mesh
+
+
 @torch.inference_mode()
 def run_benchmark(pipe: DewarpPipeline, dataset, out_dir: str, *,
                   batch_size: int = 8, seed: int = 0,
                   save_outputs: bool = True, save_coord_maps: bool = False,
-                  profile_dir: Optional[str] = None) -> Dict[str, float]:
+                  profile_dir: Optional[str] = None,
+                  mesh="auto") -> Dict[str, float]:
     """Dewarp every page of ``dataset`` (``__len__`` and ``batches``, as
     :class:`~dvd_tpu_torch.data.benchmark.BenchmarkDataset`) on the
     pipeline's device, write the outputs under ``out_dir/dewarped_pred``
     and ``out_dir/run_stats.json``, and return the stats.
     ``profile_dir``: a ``torch.profiler`` trace of the steady state (every
-    batch after the first) is written there."""
+    batch after the first) is written there.  ``mesh``: see
+    :func:`serving_mesh`; ``batch_size`` is the global batch, which must
+    divide over its data axis.  ``parallel.fsdp`` shards training state:
+    serving holds whole weights, as ``dvd_tpu``'s driver does."""
     dev = pipe.device
+    mesh = serving_mesh(pipe, mesh)
+    data = mesh.data if mesh is not None else 1
+    if batch_size % data:
+        raise ValueError(f"batch {batch_size} does not divide over the "
+                         f"mesh's data axis {data}")
+    rows = batch_slice(mesh, batch_size // data)
+    rows_np = rows.numpy()
+
+    def local(a):               # this rank's rows of a host batch array
+        return a if data == 1 else np.asarray(a)[rows_np]
+
+    writes = mesh is None or mesh.model_index == 0
+    primary = mesh is None or mesh.primary
     pred_dir = os.path.join(out_dir, "dewarped_pred")
     os.makedirs(pred_dir, exist_ok=True)
 
     def dewarp(src, gen):
-        cond, init_flow, init_feat = pipe.build_conditioning(src)
-        return pipe.sampling_impl(cond, init_flow, init_feat, gen)
+        with comm.batch_rows(rows, batch_size):
+            cond, init_flow, init_feat = pipe.build_conditioning(src)
+            return pipe.sampling_impl(cond, init_flow, init_feat, gen)
 
     writer = ThreadPoolExecutor(max_workers=4)
     pending = []
@@ -123,9 +170,14 @@ def run_benchmark(pipe: DewarpPipeline, dataset, out_dir: str, *,
         out_dev, flow_dev, batch = inflight
         out = out_dev.cpu().numpy()
         flow_np = flow_dev.float().cpu().numpy()
-        for j in range(batch["count"]):
-            name = os.path.basename(batch["paths"][j])
-            h, w = batch["hw"][j]
+        for j, g in enumerate(rows_np.tolist()):
+            if g >= batch["count"]:          # the last batch's padding
+                continue
+            n_done += 1
+            if not writes:
+                continue
+            name = os.path.basename(batch["paths"][g])
+            h, w = batch["hw"][g]
             if save_outputs:
                 pending.append(writer.submit(
                     save_png, os.path.join(pred_dir, f"warped_{name}"),
@@ -134,7 +186,6 @@ def run_benchmark(pipe: DewarpPipeline, dataset, out_dir: str, *,
                 pending.append(writer.submit(
                     np.save, os.path.join(pred_dir, f"coord_{name}.npy"),
                     flow_np[j]))
-        n_done += batch["count"]
 
     prof = None
     compile_time, t_start = 0.0, None
@@ -142,11 +193,11 @@ def run_benchmark(pipe: DewarpPipeline, dataset, out_dir: str, *,
     try:
         for bi, batch in enumerate(prefetched_batches(dataset, batch_size)):
             src_u8 = torch.from_numpy(np.clip(
-                np.asarray(batch["source_image"]) * 255.0 + 0.5, 0, 255
+                np.asarray(local(batch["source_image"])) * 255.0 + 0.5, 0, 255
             ).astype(np.uint8)).to(dev)
             src = src_u8.to(torch.float32) / 255.0
-            padded = torch.from_numpy(batch["source_padded"]).to(dev)
-            hw = torch.from_numpy(batch["hw"]).to(dev)
+            padded = torch.from_numpy(local(batch["source_padded"])).to(dev)
+            hw = torch.from_numpy(local(batch["hw"])).to(dev)
             gen = batch_generator(dev, seed, bi)
             t0 = time.perf_counter()
             flow = dewarp(src, gen)
@@ -157,7 +208,7 @@ def run_benchmark(pipe: DewarpPipeline, dataset, out_dir: str, *,
                 # launches: excluded from the throughput
                 compile_time = time.perf_counter() - t0
                 t_start = time.perf_counter()
-                if profile_dir:
+                if profile_dir and primary:
                     from torch.profiler import ProfilerActivity, profile
 
                     acts = [ProfilerActivity.CPU] + (
@@ -178,6 +229,9 @@ def run_benchmark(pipe: DewarpPipeline, dataset, out_dir: str, *,
             prof.__exit__(None, None, None)
     _sync(dev)
     t_end = time.perf_counter()
+    if mesh is not None:
+        count = torch.tensor([n_done], dtype=torch.float64, device=dev)
+        n_done = int(comm.all_reduce_(count, mesh.data_group).item())
     if prof is not None:            # the dump is not part of the throughput
         os.makedirs(profile_dir, exist_ok=True)
         path = os.path.join(profile_dir, "trace.json")
@@ -212,8 +266,9 @@ def run_benchmark(pipe: DewarpPipeline, dataset, out_dir: str, *,
         stage["sample"] = round(
             max(stage["sample"] - stage["conditioning"], 0.0), 4)
         stats["stage_seconds_per_batch"] = stage
-    with open(os.path.join(out_dir, "run_stats.json"), "w") as f:
-        json.dump(stats, f, indent=2)
+    if primary:
+        with open(os.path.join(out_dir, "run_stats.json"), "w") as f:
+            json.dump(stats, f, indent=2)
     return stats
 
 
@@ -222,7 +277,9 @@ def run_from_config(cfg: DvDConfig, seed: int = 0, device="cuda",
     """CLI-facing entry: the pipeline (weights drawn from
     ``cfg.train.seed``, then any converted files at ``cfg.paths``) and the
     dataset at ``cfg.data.eval_dataset``, on ``device`` (the card unless
-    the caller asks for the CPU), batch ``data.eval_device_batch``;
+    the caller asks for the CPU), batch ``data.eval_device_batch`` per
+    data index (scaled by the mesh's data axis, which is the world size
+    at ``model_axis`` 1, as ``dvd_tpu`` scales it by its device count);
     outputs under ``vis_hp/{eval_dataset_name}/{cfg.name}``."""
     from dvd_tpu_torch.data.benchmark import BenchmarkDataset
     from dvd_tpu_torch.training.checkpoint import maybe_load_pipeline_weights
@@ -234,6 +291,7 @@ def run_from_config(cfg: DvDConfig, seed: int = 0, device="cuda",
     ds = BenchmarkDataset.from_dir(cfg.data.eval_dataset,
                                    source_size=cfg.model.source_size)
     out_dir = os.path.join("vis_hp", cfg.data.eval_dataset_name, cfg.name)
-    return run_benchmark(pipe, ds, out_dir,
-                         batch_size=cfg.data.eval_device_batch, seed=seed,
-                         profile_dir=profile_dir)
+    mesh = serving_mesh(pipe, "auto")
+    batch = cfg.data.eval_device_batch * (mesh.data if mesh else 1)
+    return run_benchmark(pipe, ds, out_dir, batch_size=batch, seed=seed,
+                         profile_dir=profile_dir, mesh=mesh)

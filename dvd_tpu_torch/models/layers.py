@@ -22,6 +22,7 @@ from dvd_tpu_torch.ops.kernels.conv3x3 import (conv3x3, conv3x3_trainable,
                                                k_major_weights,
                                                k_major_weights_split)
 from dvd_tpu_torch.ops.quant import qlinear, quantize_rows
+from dvd_tpu_torch.parallel import comm
 from dvd_tpu_torch.utils.dtypes import at_least_f32
 
 
@@ -376,7 +377,14 @@ class BatchNorm(nn.Module):
     ``max(0, E[x^2] - E[x]^2)``.  It does not touch the running statistics
     itself: it keeps the batch's statistics in ``batch_stats`` and
     :func:`commit_batch_stats` folds the last call's into them, as the JAX
-    train step keeps one update per step from its last model call."""
+    train step keeps one update per step from its last model call.
+
+    Under data parallelism (``group``, the data group, set by
+    ``parallel.mesh.shard_params``) E[x] and E[x^2] are averaged over the
+    group's equal local batches, with their gradient: the global batch's
+    moments, as ``dvd_tpu``'s step over a sharded batch takes them."""
+
+    group = None
 
     def __init__(self, features: int, eps: float = 1e-5,
                  momentum: float = 0.9):
@@ -402,8 +410,12 @@ class BatchNorm(nn.Module):
             return x * inv.to(x.dtype) + shift.to(x.dtype)
         dims = tuple(range(x.dim() - 1))
         x32 = at_least_f32(x)
-        mean = x32.mean(dims)
-        var = torch.clamp((x32 * x32).mean(dims) - mean * mean, min=0.0)
+        mean, msq = x32.mean(dims), (x32 * x32).mean(dims)
+        if self.group is not None:
+            moments = comm.all_reduce_sum(torch.stack([mean, msq]),
+                                          self.group)
+            mean, msq = moments / comm.group_size(self.group)
+        var = torch.clamp(msq - mean * mean, min=0.0)
         self.batch_stats = (mean.detach(), var.detach())
         mul = torch.rsqrt(var + self.eps) * at_least_f32(self.scale)
         return ((x32 - mean) * mul + at_least_f32(self.bias)).to(x.dtype)
@@ -425,10 +437,10 @@ def commit_batch_stats(module: nn.Module) -> None:
 def dropout(x: torch.Tensor, rate: float,
             generator: Optional[torch.Generator]) -> torch.Tensor:
     """flax ``nn.Dropout`` in train mode: keep with probability 1 - rate
-    (a uniform draw from ``generator`` on x's device), scale by
-    1 / (1 - rate)."""
+    (a uniform draw from ``generator`` on x's device, for the global
+    batch's rows under ``comm.batch_rows``), scale by 1 / (1 - rate)."""
     if rate <= 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) \
+    keep = comm.rand(x.shape, generator=generator, device=x.device) \
         < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))

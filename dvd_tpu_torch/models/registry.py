@@ -123,7 +123,7 @@ def create_model(cfg: DvDConfig) -> nn.Module:
     raise ValueError(f"unknown train_mode {mode!r}")
 
 
-def create_model_and_diffusion(cfg: DvDConfig, device="cpu"
+def create_model_and_diffusion(cfg: DvDConfig, device="cuda"
                                ) -> Tuple[nn.Module, DiffusionSchedule]:
     d = cfg.diffusion
     sched = make_schedule(steps=d.diffusion_steps,

@@ -16,6 +16,13 @@ Two formats:
   history) in one ``torch.save`` file, written under a temporary name and
   renamed, so a reader never sees half a checkpoint.  (The JAX package's
   orbax directories have no PyTorch counterpart.)
+
+Under a mesh saving is a collective: every rank gathers the TP slices and
+FSDP shards (parameters, AdamW moments, EMA) to the unsharded layout, rank
+0 writes, and every rank then meets at a barrier.  So a checkpoint is the
+same whatever the layout that wrote it; it resumes under any layout (it is
+restored into the unsharded state, which is laid out after) and serves
+unsharded.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ import re
 from typing import Any, Dict, Mapping, Optional
 
 import torch
+import torch.distributed as dist
 
 from dvd_tpu_torch.training import resample
 from dvd_tpu_torch.training.convert import (load_variables as
@@ -106,23 +114,58 @@ def _atomic_save(obj, path: str) -> None:
     os.replace(tmp, path)
 
 
+def _primary(state) -> bool:
+    return state.layout is None or state.layout.mesh.primary
+
+
+def _barrier() -> None:
+    if dist.is_initialized():
+        dist.barrier()
+
+
+def unsharded_state(state):
+    """(model state_dict, optimizer state_dict, EMA trees) of ``state`` in
+    the unsharded layout: a collective under a mesh (every rank gathers)."""
+    model_sd = state.model.state_dict()
+    opt = state.optimizer.state_dict()
+    ema = list(state.ema_params)
+    lay = state.layout
+    if lay is None:
+        return model_sd, opt, ema
+    model_sd = {k: lay.unsharded(k, v) if k in lay.placements
+                and k not in lay.fsdp else v for k, v in model_sd.items()}
+    names = list(lay.held)
+    # new dicts: the state_dict's per-parameter entries are the live ones
+    opt["adamw"]["state"] = {
+        i: {k: lay.unsharded(names[i], v) if v.dim() else v
+            for k, v in st.items()}
+        for i, st in opt["adamw"]["state"].items()}
+    ema = [{k: lay.unsharded(k, v) for k, v in tree.items()} for tree in ema]
+    return model_sd, opt, ema
+
+
 def save_train_state(workspace: str, state) -> str:
     st = state.sampler_state
     path = _state_path(workspace, state.step)
-    _atomic_save({
-        "step": state.step,
-        "model": state.model.state_dict(),
-        "optimizer": state.optimizer.state_dict(),
-        "ema_params": list(state.ema_params),
-        "sampler_state": None if st is None else
-        {"history": st.history, "counts": st.counts},
-    }, path)
+    model_sd, opt, ema = unsharded_state(state)
+    if _primary(state):
+        _atomic_save({
+            "step": state.step,
+            "model": model_sd,
+            "optimizer": opt,
+            "ema_params": ema,
+            "sampler_state": None if st is None else
+            {"history": st.history, "counts": st.counts},
+        }, path)
+    _barrier()
     return path
 
 
 def restore_train_state(path: str, state):
-    """Load ``path`` into ``state`` in place (tensors go to the state's
-    device) and return it."""
+    """Load ``path`` into the unsharded ``state`` in place (tensors go to
+    the state's device) and return it; lay it out afterwards."""
+    if state.layout is not None:
+        raise ValueError("restore_train_state takes the unsharded state")
     dev = next(state.model.parameters()).device
     blob = torch.load(path, map_location=dev, weights_only=True)
     state.model.load_state_dict(blob["model"])
@@ -154,11 +197,14 @@ def save_ema_snapshots(workspace: str, cfg, state, step: int) -> None:
     """One ``ema_{rate}_{step:06d}.msgpack`` per EMA rate: the DiT's
     variables ``{"params": EMA parameters, "batch_stats": the current BN
     running statistics}``, loadable as a model variable file (by
-    :func:`maybe_load_pipeline_weights` and by ``dvd_tpu``)."""
-    base = state.model.state_dict()
-    for rate, tree in zip(cfg.train.ema_rates, state.ema_params):
-        sd = dict(base)
-        sd.update(tree)
-        save_variables(os.path.join(workspace,
-                                    f"ema_{rate}_{step:06d}.msgpack"),
-                       state_dict_to_variables(sd))
+    :func:`maybe_load_pipeline_weights` and by ``dvd_tpu``).  Under a mesh
+    a collective; rank 0 writes."""
+    base, _, ema = unsharded_state(state)
+    if _primary(state):
+        for rate, tree in zip(cfg.train.ema_rates, ema):
+            sd = dict(base)
+            sd.update(tree)
+            save_variables(os.path.join(workspace,
+                                        f"ema_{rate}_{step:06d}.msgpack"),
+                           state_dict_to_variables(sd))
+    _barrier()

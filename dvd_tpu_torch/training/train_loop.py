@@ -11,7 +11,12 @@ reference ``TrainLoop.run_loop_dewarping``, ``train_util.py:211-344``).
   64^2 (``:306-312``);
 - logging every ``log_interval`` with per-quartile loss keys, checkpoints
   every ``save_interval`` (``:333-339``);
-- one device.
+- one device, or one rank of the (``parallel.data_axis``,
+  ``parallel.model_axis``) mesh over an initialised ``torch.distributed``
+  group, with ``parallel.fsdp`` (``parallel/mesh.py``): each rank feeds its
+  rows of the global batch (``train.batch_size`` per process), the
+  augmentation's jitter factors are drawn for the global batch and
+  sliced, rank 0 writes the logs and checkpoints.
 
 Batches are channel-last numpy arrays or tensors of one of two kinds,
 told apart by their keys, as in ``dvd_tpu``:
@@ -33,7 +38,9 @@ import time
 import warnings
 from typing import Callable, Dict, Iterator, Optional
 
+import numpy as np
 import torch
+import torch.distributed as dist
 
 from dvd_tpu_torch.config import DvDConfig
 from dvd_tpu_torch.data.device_aug import augment_batch, jitter_factors
@@ -41,9 +48,13 @@ from dvd_tpu_torch.evaluation.pipeline import DewarpPipeline
 from dvd_tpu_torch.models.u2net import seg_pyramid_to_latent
 from dvd_tpu_torch.models.vgg import c20_for_dit, c20_for_unet
 from dvd_tpu_torch.ops.resize import resize_bilinear
+from dvd_tpu_torch.parallel import comm
+from dvd_tpu_torch.parallel.mesh import Mesh, batch_slice, make_mesh
 from dvd_tpu_torch.training import checkpoint as ckpt
 from dvd_tpu_torch.training.train_state import (TrainState, create_train_state,
-                                                make_train_step)
+                                                make_train_step,
+                                                microbatch_chunks,
+                                                shard_train_state)
 from dvd_tpu_torch.utils.logger import KVLogger, log_loss_quartiles
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
@@ -149,10 +160,27 @@ def make_batch_prep(cfg: DvDConfig, pipe: DewarpPipeline
     return prep
 
 
+def put_global_batch(raw: Dict, device) -> Dict[str, torch.Tensor]:
+    """This process's rows of the global batch (host arrays or tensors) ->
+    tensors on ``device``: each rank holds its own part and the step's
+    collectives make it one global batch (``dvd_tpu`` assembles a global
+    array from every process's part)."""
+    return {k: torch.as_tensor(v).to(device, non_blocking=True)
+            for k, v in raw.items()}
+
+
+def fetch_metrics(metrics: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """Host values of a step's metrics: the global scalars, and this rank's
+    per-sample values (its rows), as ``dvd_tpu`` fetches each process's
+    addressable shards; the logger then reduces across ranks."""
+    return {k: v.detach().cpu().numpy() for k, v in metrics.items()}
+
+
 def train(cfg: DvDConfig, data_iter: Iterator[Dict],
           max_steps: Optional[int] = None, device="cuda",
           logger: Optional[KVLogger] = None,
-          spans: Optional[Callable] = None) -> TrainState:
+          spans: Optional[Callable] = None,
+          mesh: Optional[Mesh] = None) -> TrainState:
     """Train the denoiser on ``data_iter``'s batches until it ends or
     ``max_steps`` steps are done; returns the final state (also saved to
     ``workspace_dir/name``).  Weights are drawn from ``train.seed``, then
@@ -161,12 +189,23 @@ def train(cfg: DvDConfig, data_iter: Iterator[Dict],
     ``dvd_tpu``; a checkpoint in the workspace (or
     ``train.resume_checkpoint``) wins over the loaded DiT.  ``spans``
     times the step's stages (see ``make_train_step``) and the batch
-    preparation ("prep", the augmentation included)."""
+    preparation ("prep", the augmentation included).
+
+    ``mesh`` (default ``make_mesh(parallel.data_axis,
+    parallel.model_axis)``, which asserts that the layout covers the
+    ranks) lays the state out under an initialised process group or
+    ``parallel.fsdp``; the returned state is then sharded as it trained.
+    Each rank's ``data_iter`` yields its rows of the global batch; ranks
+    of one model group must yield the same batches."""
     device = torch.device(device)
     ws = os.path.join(cfg.paths.workspace_dir, cfg.name)
+    if mesh is None:
+        mesh = make_mesh(cfg.parallel.data_axis, cfg.parallel.model_axis)
     if logger is None:
-        logger = KVLogger(os.path.join(cfg.paths.workspace_dir,
-                                       f"train_{cfg.name}"))
+        logger = KVLogger(
+            os.path.join(cfg.paths.workspace_dir, f"train_{cfg.name}")
+            if mesh.primary else None,
+            formats=("stdout", "csv", "jsonl") if mesh.primary else ())
     pipe = DewarpPipeline.create(
         cfg, device, generator=torch.Generator().manual_seed(cfg.train.seed),
         train=True)
@@ -177,7 +216,13 @@ def train(cfg: DvDConfig, data_iter: Iterator[Dict],
     if resume and os.path.isfile(str(resume)):
         state = ckpt.restore_train_state(resume, state)
         logger.log(f"resumed from {resume} at step {state.step}")
-    train_step = make_train_step(cfg, pipe.sched, spans)
+    sharded = dist.is_initialized() or cfg.parallel.fsdp
+    if sharded:
+        state = shard_train_state(cfg, state, mesh, cfg.parallel.fsdp)
+        logger.log(f"mesh {mesh.shape}, fsdp={cfg.parallel.fsdp}: "
+                   f"{len(state.layout.placements)} parameters sharded")
+    train_step = make_train_step(cfg, pipe.sched, spans,
+                                 mesh if sharded else None)
     prep = make_batch_prep(cfg, pipe)
 
     step = state.step
@@ -185,13 +230,17 @@ def train(cfg: DvDConfig, data_iter: Iterator[Dict],
     for raw in data_iter:
         if max_steps is not None and step >= max_steps:
             break
-        with spans("prep") if spans else contextlib.nullcontext():
+        raw = put_global_batch(raw, device)
+        n = next(iter(raw.values())).shape[0]
+        rows = batch_slice(mesh, n, microbatch_chunks(cfg, n))
+        with spans("prep") if spans else contextlib.nullcontext(), \
+                comm.batch_rows(rows, n * mesh.data):
             batch = prep(raw, step)
         gen = step_generator(cfg.train.seed, step, device)
         state, metrics = train_step(state, batch, gen)
 
         if step % cfg.train.log_interval == 0:
-            m = {k: v.detach().cpu().numpy() for k, v in metrics.items()}
+            m = fetch_metrics(metrics)
             log_loss_quartiles(logger, pipe.sched.num_timesteps, m.pop("t"),
                                {"loss": m.pop("loss_per_sample"),
                                 "mse": m.pop("mse_per_sample")})
@@ -199,7 +248,7 @@ def train(cfg: DvDConfig, data_iter: Iterator[Dict],
             t_last = time.perf_counter()
             logger.logkv("step", step)
             logger.logkv("grad_norm", float(m["grad_norm"]))
-            logger.logkv("samples_per_sec", batch["flow64"].shape[0]
+            logger.logkv("samples_per_sec", n * mesh.data
                          * cfg.train.log_interval / max(dt, 1e-9))
             logger.dumpkvs(step)
 

@@ -4,8 +4,8 @@ reference ``TrainLoop`` internals, ``train_util.py:38-642``).
 AdamW (``:111``) after global-norm gradient clipping at 1.0 (``:411``),
 with a linear LR anneal over ``lr_anneal_steps`` (``:583-590``), EMA per
 rate (``local.py:52``), microbatch gradient accumulation (``:370-375``)
-and the timestep samplers of ``training/resample.py``.  One device; the
-data-parallel version comes later.
+and the timestep samplers of ``training/resample.py``.  One device, or one
+rank of a (data, model) mesh (``parallel/mesh.py``).
 
 How the step follows the JAX one:
 
@@ -23,6 +23,29 @@ How the step follows the JAX one:
 - gradients are scaled by the mean sampler weight before clipping;
   parameters that received no gradient (the dead DiT blocks) get zeros,
   so Adam leaves them unchanged and EMA still runs over them.
+
+Under a mesh the step is ``dvd_tpu``'s one global program, made of
+explicit collectives (``torch.autograd.grad`` fires no
+``DistributedDataParallel`` or FSDP hook):
+
+- each rank holds its rows of the global batch (``mesh.batch_slice``);
+  t (and the sampler weights) are drawn for the global batch from the
+  step's generator on every rank and sliced, and the noise, the rollout's
+  x_T and the dropout masks are drawn for each global chunk
+  (``comm.batch_rows``), so every rank's generator stays where one
+  process holding the global batch would have it;
+- the loss is the global batch's: each rank's masked squared error over
+  the global mask sum, and the gradients are summed over the data group
+  (one bucketed ``all_reduce``); train-mode BatchNorm takes the global
+  batch's moments (``layers.BatchNorm.group``);
+- under microbatching each rank's chunk i is its share of global chunk i,
+  so ``train.microbatch``, like ``train.batch_size``, is per process;
+- the loss-aware sampler's history takes the global t and the global
+  per-sample MSE (an ``all_gather``); the grad norm is computed once over
+  the whole tree (``ShardedParams.norm``);
+- TP and FSDP (``shard_train_state``): the model holds its TP slices, the
+  optimizer and the EMA hold the FSDP shards, gathered back into the model
+  after each update.
 
 The alternative denoisers (``train_mode`` ``stage_1``,
 ``stage_1_transformer``, ``stage_1_doctr``) train through
@@ -47,6 +70,9 @@ from dvd_tpu_torch.evaluation.pipeline import DTYPES
 from dvd_tpu_torch.models.dit import conditioning_pyramid_features
 from dvd_tpu_torch.models.layers import commit_batch_stats
 from dvd_tpu_torch.models.registry import check_driver_mode, is_dit_mode
+from dvd_tpu_torch.parallel import comm
+from dvd_tpu_torch.parallel.mesh import (Mesh, ShardedParams, batch_slice,
+                                         gather_batch, shard_params)
 from dvd_tpu_torch.training import resample
 
 COND_KEYS = ("y512", "mask_cat", "mask_y512", "line_msk", "src_feat")
@@ -70,6 +96,7 @@ class Optimizer:
 
     def __init__(self, cfg: DvDConfig, params: List[torch.nn.Parameter]):
         self.params = list(params)
+        self.norm_fn = global_norm      # the sharded norm under a mesh
         self.max_norm = float(cfg.train.grad_clip)
         self.lr = float(cfg.train.lr)
         self.anneal_steps = int(cfg.train.lr_anneal_steps)
@@ -87,7 +114,7 @@ class Optimizer:
     def step(self, grads: List[torch.Tensor]) -> torch.Tensor:
         """Clip ``grads`` (one per parameter), apply one AdamW update in
         place; returns the global norm before clipping."""
-        norm = global_norm(grads)
+        norm = self.norm_fn(grads)
         scale = torch.where(norm < self.max_norm, torch.ones_like(norm),
                             self.max_norm / norm)
         for p, g in zip(self.params, torch._foreach_mul(grads, scale)):
@@ -107,6 +134,12 @@ class Optimizer:
         self.adamw.load_state_dict(sd["adamw"])
 
 
+def microbatch_chunks(cfg: DvDConfig, n: int) -> int:
+    """The step's microbatch count for a batch of ``n`` (per process)."""
+    mb = cfg.train.microbatch
+    return n // mb if 0 < mb < n else 1
+
+
 def make_optimizer(cfg: DvDConfig, params) -> Optimizer:
     return Optimizer(cfg, params)
 
@@ -119,9 +152,16 @@ class TrainState:
     optimizer: Optimizer
     ema_params: Tuple[Dict[str, torch.Tensor], ...]   # one per EMA rate
     sampler_state: Optional[resample.LossSecondMomentState]
+    layout: Optional[ShardedParams] = None   # under a mesh
 
     def named_params(self) -> Dict[str, torch.nn.Parameter]:
+        """The model's parameters (under TP its local slices)."""
         return dict(self.model.named_parameters())
+
+    def held_params(self) -> List[torch.Tensor]:
+        """What the optimizer and the EMA hold: the parameters, or under
+        FSDP their shards."""
+        return self.optimizer.params
 
 
 def check_trainable(cfg: DvDConfig) -> None:
@@ -149,8 +189,34 @@ def create_train_state(cfg: DvDConfig, model: torch.nn.Module
                       ema_params=ema, sampler_state=sampler_state)
 
 
+@torch.no_grad()
+def shard_train_state(cfg: DvDConfig, state: TrainState, mesh: Mesh,
+                      fsdp: bool = False) -> TrainState:
+    """``state`` (unsharded, e.g. just restored from a checkpoint) laid out
+    on ``mesh``: the model TP-sharded in place, the optimizer rebuilt over
+    the held tensors with its moments sliced alike, the EMA trees sliced
+    (``parallel.mesh.shard_params``, ``ShardedParams``)."""
+    placements = shard_params(state.model, mesh, fsdp)
+    old = state.optimizer.state_dict()
+    layout = ShardedParams(state.model, mesh, placements)
+    optimizer = make_optimizer(cfg, layout.held.values())
+    names = list(layout.held)
+    old["adamw"]["state"] = {
+        i: {k: pl.shard(v) if pl is not None and v.dim() else v
+            for k, v in st.items()}
+        for i, st in old["adamw"]["state"].items()
+        for pl in (placements.get(names[i]),)}
+    optimizer.load_state_dict(old)
+    optimizer.norm_fn = layout.norm
+    ema = tuple({n: placements[n].shard(e) if n in placements else e
+                 for n, e in tree.items()} for tree in state.ema_params)
+    return dataclasses.replace(state, optimizer=optimizer, ema_params=ema,
+                               layout=layout)
+
+
 def make_train_step(cfg: DvDConfig, sched: DiffusionSchedule,
-                    spans: Optional[Callable] = None) -> Callable:
+                    spans: Optional[Callable] = None,
+                    mesh: Optional[Mesh] = None) -> Callable:
     """Returns ``train_step(state, batch, generator, *, t=None, noise=None,
     rollout_noise=None) -> (state, metrics)``; the state is updated in
     place.  ``train_step.loss_and_grads`` (same arguments) returns the
@@ -169,7 +235,10 @@ def make_train_step(cfg: DvDConfig, sched: DiffusionSchedule,
 
     ``generator`` (on the batch's device) draws t, the noise, the rollout's
     x_T and the dropout masks; ``t``, ``noise`` (B, S, S, 2) and
-    ``rollout_noise`` (B, S, S, 2) pin the first three.  ``spans(name)``,
+    ``rollout_noise`` (B, S, S, 2) pin the first three.  Under ``mesh``
+    (whose layout the state must have, ``shard_train_state``) ``batch`` is
+    this rank's rows of the global batch and the pins are the global
+    batch's.  ``spans(name)``,
     when given, is a context manager timing the stages ("rollout",
     "loss_backward", "optimizer_ema")."""
     check_trainable(cfg)
@@ -240,19 +309,25 @@ def make_train_step(cfg: DvDConfig, sched: DiffusionSchedule,
     loss_fn = dit_loss_fn if is_dit_mode(cfg.model.train_mode) \
         else alt_loss_fn
 
+    data = mesh.data if mesh is not None else 1
+    data_group = mesh.data_group if mesh is not None else None
+
     def loss_and_grads(state: TrainState, batch: Dict[str, torch.Tensor],
                        generator: Optional[torch.Generator], *,
                        t: Optional[torch.Tensor] = None,
                        noise: Optional[torch.Tensor] = None,
                        rollout_noise: Optional[torch.Tensor] = None):
-        """The step's gradients (one per parameter, scaled by the sampler
-        weights and averaged over microbatches) and its metrics; the BN
-        running statistics take the step's update, nothing else moves."""
+        """The step's gradients (one per held tensor: summed over the data
+        group, scaled by the sampler weights, averaged over microbatches),
+        the global batch's t and the metrics (per-sample ones for this
+        rank's rows); the BN running statistics take the step's update,
+        nothing else moves."""
         dit = state.model
-        b = batch["flow64"].shape[0]
+        n = batch["flow64"].shape[0]
         dev = batch["flow64"].device
         T = sched.num_timesteps
         st = state.sampler_state
+        b = n * data                                  # the global batch
         if t is None:
             t, weights = resample.loss_aware_sample(generator, b, st) \
                 if st is not None else \
@@ -262,45 +337,58 @@ def make_train_step(cfg: DvDConfig, sched: DiffusionSchedule,
             weights = torch.ones((b,), device=dev) if st is None else \
                 1.0 / (T * resample.loss_aware_weights(st)[t])
 
-        mb = cfg.train.microbatch
-        k = b // mb if 0 < mb < b else 1
-        if b % k:
-            raise ValueError(f"batch {b} not divisible by microbatch {mb}")
-        n = b // k
+        k = microbatch_chunks(cfg, n)
+        if n % k:
+            raise ValueError(f"batch {n} not divisible by microbatch "
+                             f"{cfg.train.microbatch}")
+        m = n // k
+        rows = batch_slice(mesh, n, k).to(dev)
+        t_local, w_local = t[rows], weights[rows]
+        if noise is not None:
+            noise = noise.to(dev)[rows]
+        if rollout_noise is not None:
+            rollout_noise = rollout_noise.to(dev)[rows]
+        chunk_rows = batch_slice(mesh, m)        # this rank's in a chunk
         params = list(state.named_params().values())
         grads = None
-        loss = mse = 0.0
-        loss_per, mse_per = [], []
+        lu, mse_per = [], []
         for i in range(k):
-            sl = slice(i * n, (i + 1) * n)
-            terms = loss_fn(
-                dit, {key: v[sl] for key, v in batch.items()}, t[sl],
-                None if noise is None else noise[sl],
-                None if rollout_noise is None else rollout_noise[sl],
-                generator)
-            g = torch.autograd.grad(terms["loss"], params, allow_unused=True)
+            sl = slice(i * m, (i + 1) * m)
+            with comm.batch_rows(chunk_rows, m * data):
+                terms = loss_fn(
+                    dit, {key: v[sl] for key, v in batch.items()},
+                    t_local[sl], None if noise is None else noise[sl],
+                    None if rollout_noise is None else rollout_noise[sl],
+                    generator)
+            # the global chunk's loss: this rank's error over the global
+            # mask sum; the ranks' gradients add up to its gradient
+            loss = terms["num"] / comm.all_reduce_(terms["den"].clone(),
+                                                   data_group)
+            g = torch.autograd.grad(loss, params, allow_unused=True)
             g = [torch.zeros_like(p) if gi is None else gi
                  for p, gi in zip(params, g)]
             # the reference's `(loss * weights).mean()` per microbatch
-            wm = weights[sl].mean()
+            wm = weights[i * m * data:(i + 1) * m * data].mean()
             if grads is None:
                 grads = torch._foreach_mul(g, wm)
             else:
                 torch._foreach_add_(grads, torch._foreach_mul(g, wm))
-            lu = terms["loss"].detach()
-            loss = loss + lu * wm
-            mse = mse + terms["mse"].detach()
-            loss_per.append(lu * weights[sl])
+            lu.append(loss.detach())
             mse_per.append(terms["mse_per"].detach())
         if k > 1:
             torch._foreach_div_(grads, float(k))
+        if state.layout is not None:
+            grads = state.layout.reduce_grads(grads)
         commit_batch_stats(dit)
+        lu = comm.all_reduce_(torch.stack(lu), data_group)
+        wms = weights.reshape(k, m * data).mean(1)
         metrics = {
-            "loss": loss / k,
-            "mse": mse / k,
-            "t": t.float(),                          # (B,) per sample
-            "loss_per_sample": torch.cat(loss_per),  # (B,) weighted
-            "mse_per_sample": torch.cat(mse_per),    # (B,) unweighted
+            "loss": (lu * wms).sum() / k,
+            "mse": lu.sum() / k,
+            "t": t_local.float(),                    # (n,) per sample
+            "loss_per_sample": (lu[:, None] * w_local.reshape(k, m))
+            .reshape(n),                             # (n,) weighted
+            "mse_per_sample": torch.cat(mse_per),    # (n,) unweighted
         }
         return grads, t, metrics
 
@@ -312,15 +400,20 @@ def make_train_step(cfg: DvDConfig, sched: DiffusionSchedule,
                                                **pins)
         with span("optimizer_ema"):
             metrics["grad_norm"] = state.optimizer.step(grads)
-            params = list(state.named_params().values())
+            held = state.held_params()
             with torch.no_grad():
                 for rate, ema in zip(ema_rates, state.ema_params):
                     e = list(ema.values())
                     torch._foreach_mul_(e, rate)
-                    torch._foreach_add_(e, params, alpha=1.0 - rate)
+                    torch._foreach_add_(e, held, alpha=1.0 - rate)
+            if state.layout is not None:
+                state.layout.gather_()
         if state.sampler_state is not None:
+            n = batch["flow64"].shape[0]
             state.sampler_state = resample.update_history(
-                state.sampler_state, t, metrics["mse_per_sample"])
+                state.sampler_state, t,
+                gather_batch(metrics["mse_per_sample"], mesh,
+                             microbatch_chunks(cfg, n)))
         state.step += 1
         return state, metrics
 

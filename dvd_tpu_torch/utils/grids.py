@@ -7,7 +7,8 @@
   ``grid_sample`` convention (x = width first).
 
 Flows and grids are channel-last ``(..., H, W, 2)``, as in ``dvd_tpu`` and
-as ``grid_sample`` takes its grid.
+as ``grid_sample`` takes its grid; ``nchw_to_nhwc`` and ``nhwc_to_nchw``
+move images between the two layouts.
 """
 
 from __future__ import annotations
@@ -37,3 +38,25 @@ def flow_to_grid(flow: torch.Tensor, shrink: float = 1.0) -> torch.Tensor:
     if shrink != 1.0:
         g = g * shrink
     return g
+
+
+def grid_to_flow(grid: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`flow_to_grid` (with shrink 1)."""
+    h, w = grid.shape[-3], grid.shape[-2]
+    return (grid + 1.0) * 0.5 - base_grid(h, w, grid.dtype, grid.device)
+
+
+def absolute_bm_to_flow(bm: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """A backward map in pixels (x in 0..W-1, y in 0..H-1) -> the offset
+    field: divided by (size - 1), as the training loop normalises its
+    targets (reference ``train_util.py:306-312``)."""
+    return bm / torch.tensor([w - 1.0, h - 1.0], dtype=bm.dtype,
+                             device=bm.device)
+
+
+def nchw_to_nhwc(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 2, 3, 1)
+
+
+def nhwc_to_nchw(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 3, 1, 2)

@@ -2,8 +2,11 @@
 reference's OpenAI-baselines logger surface).
 
 ``logkv``/``logkv_mean``/``dumpkvs``, a human-readable stdout table, CSV
-and JSONL writers and per-quartile loss keys.  One process: means are
-local (no multi-host reduction yet).
+and JSONL writers and per-quartile loss keys.  Under ``torch.distributed``
+``dumpkvs`` is a collective: each key's mean is weighted by its count over
+every rank (:func:`multihost_weighted_means`, the reference's
+``mpi_weighted_mean``), and only a logger given formats writes (rank 0's,
+in training).
 """
 
 from __future__ import annotations
@@ -15,6 +18,26 @@ from collections import defaultdict
 from typing import Dict, Optional
 
 import numpy as np
+import torch.distributed as dist
+
+
+def multihost_weighted_means(means: Dict[str, tuple]) -> Dict[str, float]:
+    """Count-weighted means of ``{key: (sum, count)}`` over every rank
+    (reference ``logger.py:413-440``).  Key sets may differ between ranks
+    (the quartile keys follow each rank's timesteps), so the dicts travel
+    through ``all_gather_object``.  One process: the local means, no
+    collective.  Every rank must call it at the same point."""
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return {k: s / n for k, (s, n) in means.items() if n}
+    gathered = [None] * dist.get_world_size()
+    dist.all_gather_object(gathered, dict(means))
+    acc: Dict[str, list] = {}
+    for part in gathered:
+        for k, (s, n) in part.items():
+            a = acc.setdefault(k, [0.0, 0])
+            a[0] += s
+            a[1] += n
+    return {k: s / n for k, (s, n) in acc.items() if n}
 
 
 class KVLogger:
@@ -45,7 +68,8 @@ class KVLogger:
 
     def dumpkvs(self, step: Optional[int] = None) -> Dict[str, float]:
         out = dict(self._vals)
-        out.update({k: s / n for k, (s, n) in self._means.items() if n})
+        out.update(multihost_weighted_means(
+            {k: (s, n) for k, (s, n) in self._means.items() if n}))
         self._vals.clear()
         self._means.clear()
         if not out:

@@ -53,7 +53,7 @@ def _cfgs(mode, **over):
 @pytest.mark.parametrize("mode", MODES)
 def test_every_mode_builds(mode):
     jcfg, cfg = _cfgs(mode)
-    model, sched = registry.create_model_and_diffusion(cfg)
+    model, sched = registry.create_model_and_diffusion(cfg, "cpu")
     assert sched.num_timesteps == 3
     assert registry.is_dit_mode(mode) == isinstance(model, DiT) \
         == jreg.is_dit_mode(mode)
@@ -93,7 +93,8 @@ def test_undrivable_modes_refused(mode):
     with pytest.raises(NotImplementedError, match="Drivable modes"):
         DewarpPipeline.create(cfg, "cpu")
     with pytest.raises(NotImplementedError, match="Drivable modes"):
-        make_train_step(cfg, registry.create_model_and_diffusion(cfg)[1])
+        make_train_step(cfg,
+                        registry.create_model_and_diffusion(cfg, "cpu")[1])
 
 
 @pytest.mark.parametrize("mode", ["stage_1", "stage_1_transformer",

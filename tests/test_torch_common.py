@@ -5,6 +5,12 @@ weights: the flax variables of the ``dvd_tpu`` module are carried into the
 port's state_dict by ``dvd_tpu_torch.training.convert``.
 """
 
+import os
+import socket
+import subprocess
+import sys
+import time
+
 import jax
 import numpy as np
 import torch
@@ -225,3 +231,68 @@ def train_pipelines(sources, **train_over):
     port(pipe.seg, seg_vars)
     port(pipe.line, line_vars)
     return jcfg, cfg, jp, pipe
+
+
+# ------------------------------------------------- torch.distributed worlds
+WORKER = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                      "torch_dist_worker.py")
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_world(case: str, spec: dict, tmp, world: int = 2,
+              timeout: float = 120.0):
+    """Run ``tests/torch_dist_worker.py CASE`` as ``world`` gloo ranks on
+    the CPU with ``spec``; returns what rank 0 wrote.  The world is killed
+    and the test fails after ``timeout`` seconds."""
+    tmp = str(tmp)
+    spec_path = os.path.join(tmp, f"{case}_spec.pt")
+    out_path = os.path.join(tmp, f"{case}_out.pt")
+    torch.save(spec, spec_path)
+    port = free_port()
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    logs = [open(os.path.join(tmp, f"{case}_rank{r}.log"), "w+")
+            for r in range(world)]
+    procs = [subprocess.Popen(
+        [sys.executable, WORKER, case, str(r), str(world), str(port),
+         spec_path, out_path], env=env, stdout=logs[r],
+        stderr=subprocess.STDOUT) for r in range(world)]
+    deadline = time.monotonic() + timeout
+    try:
+        rcs = [p.wait(timeout=max(1.0, deadline - time.monotonic()))
+               for p in procs]
+    except subprocess.TimeoutExpired:
+        rcs = None
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    tails = []
+    for r, f in enumerate(logs):
+        f.seek(0)
+        tails.append(f"--- rank {r} ---\n" + f.read()[-3000:])
+        f.close()
+    assert rcs is not None, f"world {case} timed out\n" + "\n".join(tails)
+    assert rcs == [0] * world, f"world {case}: {rcs}\n" + "\n".join(tails)
+    return torch.load(out_path, weights_only=False)
+
+
+def recorded_step(step, state, batch, **pins):
+    """``step(state, batch, None, **pins)`` that also returns the gradients
+    the optimizer was given (one per held tensor)."""
+    record = {}
+    opt_step = state.optimizer.step
+
+    def recording(grads):
+        record["grads"] = [g.clone() for g in grads]
+        return opt_step(grads)
+
+    state.optimizer.step = recording
+    state, m = step(state, batch, None, **pins)
+    state.optimizer.step = opt_step
+    return state, m, dict(zip(state.named_params(), record["grads"]))

@@ -564,3 +564,110 @@ def test_conv1x1_f32_ignores_tf32(dev):
                                       conv.bias.double())
     torch.testing.assert_close(outs[1].double(), want, rtol=0,
                                atol=1e-5 * want.abs().max().item())
+
+
+@pytest.mark.parametrize("dtype,bar", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("kind,dim,heads,tokens",
+                         [("dit", 384, 6, 1024), ("satrn", 1536, 6, 1024)])
+def test_attention_on_tp_local_heads(dev, monkeypatch, dtype, bar, kind, dim,
+                                     heads, tokens):
+    """Under tensor parallelism (model=2) rank 0's attention runs K1 on its
+    local heads as ``split_heads`` makes them: strided views into the
+    column-parallel fused qkv (DiT-S/2's 3 local heads of Dh 64, the
+    row stride 3 x 192) or into separate projections (the SATRN decoder's
+    3 of Dh 256).  The module's output against the same module with its
+    attention bound to the twin."""
+    from dvd_tpu_torch.models import layers, satrn
+    from dvd_tpu_torch.parallel.mesh import Mesh, shard_params
+
+    g = _gen()
+    with torch.no_grad():
+        mod = layers.SelfAttention(dim, heads) if kind == "dit" else \
+            satrn.SATRNAttention(heads, dim, 256, 256, dropout=0.0)
+        layers.seeded_init_(mod, g)
+    # under the parameter names the rules match (blocks_*.attn.qkv,
+    # decoder.*.attn.linear_q): rank 0 of model=2, with no group
+    root = torch.nn.Module()
+    if kind == "dit":
+        root.attn = mod
+    else:
+        root.decoder = torch.nn.Module()
+        root.decoder.layer_stack_0 = torch.nn.Module()
+        root.decoder.layer_stack_0.attn = mod
+    shard_params(root, Mesh(data=1, model=2))
+    mod = mod.to(dev, dtype)
+    assert getattr(mod, "num_heads", getattr(mod, "n_head", None)) == 3
+    x = torch.randn(2, tokens, dim, generator=g).to(dev, dtype)
+    with torch.no_grad():
+        before = attention.launches
+        got = mod(x)
+        assert attention.launches == before + 1
+        monkeypatch.setattr(layers, "attention", lambda q, k, v, scale: (
+            attention_ref(q, k, v, q.shape[-1] ** -0.5 if scale is None
+                          else scale)))
+        want = mod(x)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=bar * max(1.0, want.float().abs().max()
+                                              .item()))
+
+
+def test_one_rank_nccl_step_equals_plain_step(dev, monkeypatch):
+    """A 1-rank NCCL world's train step (the data-parallel path: the
+    global batch's draws sliced, the loss over the all-reduced mask sum,
+    BN moments and gradients all-reduced over one rank) against the plain
+    step, from the same weights, batch and generator: bit for bit, with
+    cuDNN's deterministic algorithms (the trainable conv's weight
+    gradient takes cuDNN's)."""
+    import torch.distributed as dist
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+
+    from dvd_tpu_torch.config import default_config
+    from dvd_tpu_torch.diffusion.schedule import make_schedule
+    from dvd_tpu_torch.models.dit import make_dit
+    from dvd_tpu_torch.models.layers import seeded_init_
+    from dvd_tpu_torch.parallel.mesh import init_distributed, make_mesh
+    from dvd_tpu_torch.training.train_state import (create_train_state,
+                                                    make_train_step,
+                                                    shard_train_state)
+
+    cfg = default_config().replace(model={
+        "image_size": 16, "source_size": 128, "perception_size": 64,
+        "compute_dtype": "float32", "dit_variant": "DiT-mini"})
+    g = _gen()
+    b = 2
+    batch = {"y512": torch.rand(b, 3, 128, 128, generator=g),
+             "mask_cat": torch.ones(b, 1, 128, 128),
+             "mask_y512": 0.1 * torch.randn(b, 384, 16, 16, generator=g),
+             "line_msk": 0.1 * torch.randn(b, 64, 16, 16, generator=g),
+             "flow64": 0.05 * torch.randn(b, 16, 16, 2, generator=g),
+             "flow_inter": torch.zeros(b, 128, 128, 2),
+             "mask": torch.ones(b, 128, 128, 1)}
+    batch = {k: v.to(dev) for k, v in batch.items()}
+    sd = seeded_init_(make_dit("DiT-mini", input_size=16),
+                      _gen()).state_dict()
+    sched = make_schedule(steps=3, device=dev)
+    init_distributed("nccl", dev, rank=0, world_size=1,
+                     init_method="tcp://127.0.0.1:29531")
+    try:
+        runs = []
+        for sharded in (False, True):
+            net = make_dit("DiT-mini", input_size=16)
+            net.load_state_dict(sd)
+            state = create_train_state(cfg, net.to(dev))
+            mesh = make_mesh() if sharded else None
+            if sharded:
+                state = shard_train_state(cfg, state, mesh)
+            step = make_train_step(cfg, sched, mesh=mesh)
+            gen = torch.Generator(device=dev).manual_seed(5)
+            state, m = step(state, batch, gen)
+            runs.append((m, state.model.state_dict()))
+        (m0, s0), (m1, s1) = runs
+        for k in ("loss", "grad_norm", "mse_per_sample", "t"):
+            assert torch.equal(m0[k], m1[k]), k
+        for k in s0:
+            assert torch.equal(s0[k], s1[k]), k
+    finally:
+        dist.destroy_process_group()

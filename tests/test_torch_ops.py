@@ -67,6 +67,50 @@ def test_resize_bilinear(align, src, dst):
     np.testing.assert_allclose(got, want, atol=1e-6)
 
 
+@pytest.mark.parametrize("src,dst", [((64, 64), (16, 16)), ((9, 7), (4, 3)),
+                                     ((33, 20), (7, 11)), ((8, 8), (8, 8))])
+def test_resize_area(src, dst):
+    """torch ``mode='area'`` as ``dvd_tpu``'s separable matmuls; also
+    against ``F.interpolate`` itself."""
+    from dvd_tpu.ops.resize import resize_area as j_resize_area
+    from dvd_tpu_torch.ops.resize import resize_area
+
+    x = np.random.RandomState(2).rand(2, *src, 3).astype(np.float32)
+    got = resize_area(nchw(x), dst)
+    np.testing.assert_allclose(
+        nhwc(got), np.asarray(j_resize_area(jnp.asarray(x), dst)), atol=1e-6)
+    np.testing.assert_allclose(
+        got.numpy(), torch.nn.functional.interpolate(nchw(x), dst,
+                                                     mode="area").numpy(),
+        atol=1e-6)
+
+
+def test_grid_helpers():
+    """``grid_to_flow`` (inverse of ``flow_to_grid``),
+    ``absolute_bm_to_flow`` and the layout moves, against ``dvd_tpu``."""
+    from dvd_tpu.utils import grids as jgrids
+    from dvd_tpu_torch.utils import grids
+
+    rng = np.random.RandomState(3)
+    grid = rng.uniform(-1, 1, (2, 9, 13, 2)).astype(np.float32)
+    np.testing.assert_allclose(
+        grids.grid_to_flow(t(grid)).numpy(),
+        np.asarray(jgrids.grid_to_flow(jnp.asarray(grid))), atol=1e-7)
+    flow = (0.1 * rng.randn(2, 9, 13, 2)).astype(np.float32)
+    np.testing.assert_allclose(
+        grids.grid_to_flow(grids.flow_to_grid(t(flow))).numpy(), flow,
+        atol=1e-6)
+    bm = rng.uniform(0, 100, (2, 9, 13, 2)).astype(np.float32)
+    np.testing.assert_array_equal(
+        grids.absolute_bm_to_flow(t(bm), 9, 13).numpy(),
+        np.asarray(jgrids.absolute_bm_to_flow(jnp.asarray(bm), 9, 13)))
+    x = rng.rand(2, 3, 5, 7).astype(np.float32)
+    np.testing.assert_array_equal(grids.nchw_to_nhwc(t(x)).numpy(),
+                                  np.asarray(jgrids.nchw_to_nhwc(x)))
+    np.testing.assert_array_equal(grids.nhwc_to_nchw(t(x)).numpy(),
+                                  np.asarray(jgrids.nhwc_to_nchw(x)))
+
+
 @pytest.mark.parametrize("padding_mode", ["zeros", "border"])
 def test_grid_sample(padding_mode):
     rng = np.random.RandomState(2)

@@ -108,11 +108,6 @@ def test_main_trains_on_synthetic_pages(tmp_path, device_dataset, capsys):
     assert len(os.listdir(tmp_path / "data" / "synthetic")) == 4
 
 
-def test_multihost_raises():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        RT.main(["--multihost", "--synthetic", "1"])
-
-
 def test_imports_without_cv2_and_h5py(tmp_path):
     """Where cv2 and h5py are missing (the card's machine), the CLI and the
     data modules import, and a call that reads a file raises."""
