@@ -1,0 +1,7 @@
+"""idle_pct.device_paced: ``idle_pct.serve`` in the serving cells that the
+device paces, which move ``pages_per_s.device_paced`` (PERF.md, section
+2)."""
+
+from perfbench.harness import reader
+
+read = reader("idle_pct.serve")

@@ -1,0 +1,7 @@
+"""k1_roofline.device_paced: ``k1_roofline.serve`` in the serving cells
+that the device paces, which move ``pages_per_s.device_paced`` (PERF.md,
+section 2)."""
+
+from perfbench.harness import reader
+
+read = reader("k1_roofline.serve")

@@ -1,0 +1,13 @@
+"""k2_roofline.serve: the sum of the K2 calls' bounds (operations and
+bytes from their shapes, ``perfbench/arith.py``) over the device time of
+everything those calls launched, in the traced run's profiled stretch."""
+
+from perfbench.arith import roofline_pct
+
+
+def read(rec):
+    calls = (rec.get("calls") or {}).get("k2")
+    seen = (rec.get("trace") or {}).get("range_s") or {}
+    if not calls or not seen.get("perfbench.k2"):
+        return None
+    return roofline_pct(calls, seen["perfbench.k2"])

@@ -1,0 +1,6 @@
+"""mfu.device_paced: ``mfu.serve`` in the serving cells that the device
+paces, which move ``pages_per_s.device_paced`` (PERF.md, section 2)."""
+
+from perfbench.harness import reader
+
+read = reader("mfu.serve")
