@@ -131,7 +131,9 @@ def main(argv: Optional[list] = None) -> None:
     ap.add_argument("--name", default="default")
     ap.add_argument("--profile", default=None, metavar="DIR",
                     help="write a torch.profiler trace of the dataset run's "
-                         "steady state to DIR")
+                         "steady state to DIR/trace.json, and the program's "
+                         "spans of every thread to DIR/spans.jsonl, stamped "
+                         "in Unix-epoch ns on the profiler's host clock")
     ap.add_argument("--corruption", default=None,
                     help="corruption-robustness sweep over --eval_dataset: "
                          "one corruption id, or 'all'")

@@ -7,7 +7,8 @@
   the re-warped features, reference ``gaussian_diffusion.py:618-624``) is
   carried between steps; the re-warp is skipped on the first step with a
   plain ``if``;
-- the result is the hypothesis mean, then a clamp to [-1, 1].
+- the result is the hypothesis mean, then a clamp to [-1, 1];
+- each step is a ``dvd.sample.step`` span (``utils/trace.py``).
 
 Flows are (N, S, S, 2) channel-last; features are NCHW.  The feature
 re-warp goes through ``ops.grid_sample.warp`` and so through K3 on a card.
@@ -26,6 +27,7 @@ from dvd_tpu_torch.diffusion import gaussian as G
 from dvd_tpu_torch.diffusion.schedule import DiffusionSchedule
 from dvd_tpu_torch.ops.grid_sample import warp
 from dvd_tpu_torch.parallel import comm
+from dvd_tpu_torch.utils import trace
 from dvd_tpu_torch.utils.grids import flow_to_grid
 
 # model_fn(x, t, cond, *, init_flow, init_feat, seed_init_feat,
@@ -79,22 +81,22 @@ def ddim_sample_loop(
     T = sched.num_timesteps
     pred_flow, feat = fl, ft
     for i in range(T - 1, -1, -1):
-        first = i == T - 1
-        if time_variant and not first:
-            fl = pred_flow
-            ft = warp(feat, flow_to_grid(pred_flow))
-        t = torch.full((nb,), i, dtype=torch.long, device=dev)
-        pred_x0, feat = model_fn(x, G.model_t(sched, t), cond_r,
-                                 init_flow=fl, init_feat=ft,
-                                 seed_init_feat=torch.full((nb,), first,
-                                                           device=dev),
-                                 remap_timesteps=True)
-        noise = None
-        if eta != 0.0:
-            noise = comm.randn(x.shape, generator=generator, device=dev)
-        step = G.ddim_step(sched, x, t, pred_x0, eta=eta, noise=noise,
-                           clip_denoised=clip_denoised)
-        x, pred_flow = step.sample, step.pred_xstart
+        with trace.span("dvd.sample.step", step=i):
+            first = i == T - 1
+            if time_variant and not first:
+                fl = pred_flow
+                ft = warp(feat, flow_to_grid(pred_flow))
+            t = torch.full((nb,), i, dtype=torch.long, device=dev)
+            pred_x0, feat = model_fn(
+                x, G.model_t(sched, t), cond_r, init_flow=fl, init_feat=ft,
+                seed_init_feat=torch.full((nb,), first, device=dev),
+                remap_timesteps=True)
+            noise = None
+            if eta != 0.0:
+                noise = comm.randn(x.shape, generator=generator, device=dev)
+            step = G.ddim_step(sched, x, t, pred_x0, eta=eta, noise=noise,
+                               clip_denoised=clip_denoised)
+            x, pred_flow = step.sample, step.pred_xstart
 
     hyp = pred_flow.reshape(n_batch, b, s, s, 2)
     return SampleResult(flow=hyp.mean(dim=0).clamp(-1.0, 1.0), hypotheses=hyp)

@@ -34,6 +34,7 @@ with the image count summed over the data group.
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import queue
@@ -51,6 +52,10 @@ from dvd_tpu_torch.evaluation.pipeline import DewarpPipeline
 from dvd_tpu_torch.ops.kernels.unwarp import unwarp
 from dvd_tpu_torch.parallel import comm
 from dvd_tpu_torch.parallel.mesh import batch_slice, make_mesh, shard_params
+from dvd_tpu_torch.utils import trace
+
+# the fields of a line of ``spans.jsonl`` (a record of ``utils/trace.py``)
+SPAN_KEYS = ("i", "name", "t0_ns", "t1_ns", "thread", "parent", "attrs")
 
 
 def save_png(path: str, arr: np.ndarray) -> None:
@@ -63,12 +68,19 @@ def prefetched_batches(dataset, batch_size: int, depth: int = 2):
     """Yield ``dataset.batches(batch_size)`` items produced by a background
     thread (decode and padding overlap device work).  A producer's
     exception (an unreadable image) is re-raised here, so a dead producer
-    cannot hang the consumer."""
+    cannot hang the consumer.  Spans: ``dvd.loader.batch`` around each
+    batch made (the loader thread), ``dvd.driver.wait`` around each wait
+    for one (the caller's thread)."""
     batch_q: "queue.Queue" = queue.Queue(maxsize=depth)
 
     def _producer():
         try:
-            for item in dataset.batches(batch_size):
+            batches = iter(dataset.batches(batch_size))
+            for bi in itertools.count():
+                with trace.span("dvd.loader.batch", batch=bi):
+                    item = next(batches, None)
+                if item is None:
+                    break
                 batch_q.put(item)
             batch_q.put(None)
         except BaseException as e:  # noqa: BLE001 - re-raised in consumer
@@ -76,7 +88,8 @@ def prefetched_batches(dataset, batch_size: int, depth: int = 2):
 
     threading.Thread(target=_producer, daemon=True).start()
     while True:
-        item = batch_q.get()
+        with trace.span("dvd.driver.wait"):
+            item = batch_q.get()
         if item is None:
             return
         if isinstance(item, BaseException):
@@ -91,6 +104,12 @@ def unwarp_u8(padded: torch.Tensor, hw: torch.Tensor,
     clip to [0, 255], cast; on a card inside the fused unwarp's one
     launch."""
     return unwarp(padded, flow, hw, out_u8=True)
+
+
+def _write(fn, path: str, arr: np.ndarray) -> None:
+    """``fn(path, arr)`` in a ``dvd.driver.write`` span (a writer thread)."""
+    with trace.span("dvd.driver.write"):
+        fn(path, arr)
 
 
 def _sync(device: torch.device) -> None:
@@ -134,7 +153,18 @@ def run_benchmark(pipe: DewarpPipeline, dataset, out_dir: str, *,
     pipeline's device, write the outputs under ``out_dir/dewarped_pred``
     and ``out_dir/run_stats.json``, and return the stats.
     ``profile_dir``: a ``torch.profiler`` trace of the steady state (every
-    batch after the first) is written there.  ``mesh``: see
+    batch after the first, the profiler started before the throughput
+    clock) is written there as ``trace.json``, and beside it
+    ``spans.jsonl``: the program's spans (``utils/trace.py``) of every
+    thread recorded while the profiler ran, one JSON object a line
+    (``i``, ``name``, ``t0_ns``, ``t1_ns``, ``thread``, ``parent``,
+    ``attrs``), stamped in Unix-epoch nanoseconds, the clock of the
+    profiler's host events.  The loop's body is covered by spans:
+    ``dvd.driver.wait``, ``dvd.driver.h2d`` (the batch's inputs onto the
+    device), ``dvd.cond``, ``dvd.sample``, ``dvd.unwarp`` and
+    ``dvd.driver.drain`` (the previous batch's results to the host and
+    its writes queued, each write a ``dvd.driver.write`` span in a writer
+    thread).  ``mesh``: see
     :func:`serving_mesh`; ``batch_size`` is the global batch, which must
     divide over its data axis.  ``parallel.fsdp`` shards training state:
     serving holds whole weights, as ``dvd_tpu``'s driver does."""
@@ -167,38 +197,44 @@ def run_benchmark(pipe: DewarpPipeline, dataset, out_dir: str, *,
     def drain(inflight):
         """Pull one batch's results to the host and queue the writes."""
         nonlocal n_done
-        out_dev, flow_dev, batch = inflight
-        out = out_dev.cpu().numpy()
-        flow_np = flow_dev.float().cpu().numpy()
-        for j, g in enumerate(rows_np.tolist()):
-            if g >= batch["count"]:          # the last batch's padding
-                continue
-            n_done += 1
-            if not writes:
-                continue
-            name = os.path.basename(batch["paths"][g])
-            h, w = batch["hw"][g]
-            if save_outputs:
-                pending.append(writer.submit(
-                    save_png, os.path.join(pred_dir, f"warped_{name}"),
-                    out[j, :h, :w]))
-            if save_coord_maps:
-                pending.append(writer.submit(
-                    np.save, os.path.join(pred_dir, f"coord_{name}.npy"),
-                    flow_np[j]))
+        out_dev, flow_dev, batch, bi = inflight
+        with trace.span("dvd.driver.drain", batch=bi):
+            out = out_dev.cpu().numpy()
+            flow_np = flow_dev.float().cpu().numpy()
+            for j, g in enumerate(rows_np.tolist()):
+                if g >= batch["count"]:          # the last batch's padding
+                    continue
+                n_done += 1
+                if not writes:
+                    continue
+                name = os.path.basename(batch["paths"][g])
+                h, w = batch["hw"][g]
+                if save_outputs:
+                    pending.append(writer.submit(
+                        _write, save_png,
+                        os.path.join(pred_dir, f"warped_{name}"),
+                        out[j, :h, :w]))
+                if save_coord_maps:
+                    pending.append(writer.submit(
+                        _write, np.save,
+                        os.path.join(pred_dir, f"coord_{name}.npy"),
+                        flow_np[j]))
 
-    prof = None
+    prof, first_span = None, 0
     compile_time, t_start = 0.0, None
     inflight, last_inputs = None, None
     try:
         for bi, batch in enumerate(prefetched_batches(dataset, batch_size)):
-            src_u8 = torch.from_numpy(np.clip(
-                np.asarray(local(batch["source_image"])) * 255.0 + 0.5, 0, 255
-            ).astype(np.uint8)).to(dev)
-            src = src_u8.to(torch.float32) / 255.0
-            padded = torch.from_numpy(local(batch["source_padded"])).to(dev)
-            hw = torch.from_numpy(local(batch["hw"])).to(dev)
-            gen = batch_generator(dev, seed, bi)
+            src_np = np.asarray(local(batch["source_image"]))
+            padded_np = local(batch["source_padded"])
+            with trace.span("dvd.driver.h2d", batch=bi,
+                            bytes=src_np.size + padded_np.nbytes):
+                src_u8 = torch.from_numpy(np.clip(
+                    src_np * 255.0 + 0.5, 0, 255).astype(np.uint8)).to(dev)
+                src = src_u8.to(torch.float32) / 255.0
+                padded = torch.from_numpy(padded_np).to(dev)
+                hw = torch.from_numpy(local(batch["hw"])).to(dev)
+                gen = batch_generator(dev, seed, bi)
             t0 = time.perf_counter()
             flow = dewarp(src, gen)
             out = unwarp_u8(padded, hw, flow)
@@ -207,17 +243,19 @@ def run_benchmark(pipe: DewarpPipeline, dataset, out_dir: str, *,
                 # the first batch pays the kernel build and the first
                 # launches: excluded from the throughput
                 compile_time = time.perf_counter() - t0
-                t_start = time.perf_counter()
                 if profile_dir and primary:
                     from torch.profiler import ProfilerActivity, profile
 
                     acts = [ProfilerActivity.CPU] + (
                         [ProfilerActivity.CUDA] if dev.type == "cuda" else [])
                     prof = profile(activities=acts)
+                    first_span = len(trace.records())
+                    # the profiler's start takes seconds: before the clock
                     prof.__enter__()
+                t_start = time.perf_counter()
             if inflight is not None:
                 drain(inflight)
-            inflight = (out, flow, batch)
+            inflight = (out, flow, batch, bi)
             last_inputs = (src, padded, hw, bi)
         if inflight is not None:
             drain(inflight)
@@ -236,7 +274,11 @@ def run_benchmark(pipe: DewarpPipeline, dataset, out_dir: str, *,
         os.makedirs(profile_dir, exist_ok=True)
         path = os.path.join(profile_dir, "trace.json")
         prof.export_chrome_trace(path)
-        print(f"profiler trace written to {path}")
+        spans = os.path.join(profile_dir, "spans.jsonl")
+        with open(spans, "w") as f:
+            for i, r in enumerate(trace.records()[first_span:], first_span):
+                f.write(json.dumps(dict(zip(SPAN_KEYS, (i,) + r))) + "\n")
+        print(f"profiler trace written to {path}, program spans to {spans}")
 
     if n_done > batch_size:
         total = t_end - (t_start or t_end)

@@ -26,7 +26,10 @@ stages 2-5 (K2; GeoTr's transformer and the DiT's and SATRN's attention
 K1), the feature re-warp (K3) and both unwarps (the fused unwarp, one
 launch).
 Weights are drawn from a seed or loaded from converted files
-(``training/checkpoint.py:maybe_load_pipeline_weights``).
+(``training/checkpoint.py:maybe_load_pipeline_weights``).  Stages 2-5 and
+the unwarp are spans of ``utils/trace.py``: ``dvd.cond`` (each
+sub-network a ``dvd.cond.<net>`` inside it), ``dvd.sample`` and
+``dvd.unwarp``.
 
 ``model.quantize="int8"`` serves the DiT with W8A8 blocks and decoder
 (``ops/quant.py``, ``models/dit.py``): those layers keep f32 weights (the
@@ -70,6 +73,7 @@ from dvd_tpu_torch.models.u2net import Seg, seg_pyramid_to_latent
 from dvd_tpu_torch.models.vgg import VGG16Pyramid, c20_for_dit, c20_for_unet
 from dvd_tpu_torch.ops.kernels.unwarp import native_grid, unwarp  # noqa: F401
 from dvd_tpu_torch.ops.resize import resize_bilinear
+from dvd_tpu_torch.utils import trace
 from dvd_tpu_torch.utils.grids import UNWARP_SHRINK
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -208,32 +212,43 @@ class DewarpPipeline:
         pyramid's 64-ch ``c20_for_unet`` plane (reference
         ``extract_raw_features_single``, eval_utils.py:148), and GeoTr
         runs only when its init flow is used."""
-        m = self.cfg.model
-        s, per = m.image_size, m.perception_size
-        x = source512.to(self.device, torch.float32).permute(0, 3, 1, 2)
-        x = x.contiguous()
-        b = x.shape[0]
-        init_feat = torch.zeros((b, 256, s, s), device=self.device)
-        if not self.is_dit and not m.use_init_flow:
-            return ({"src_feat": c20_for_unet(self.vgg(x), s)},
-                    self._init_flow(None, b), init_feat)
-        xa = resize_bilinear(x, (per, per), True).to(self.dtype).contiguous()
-        ref_bm, mask_cat = self.geotr(xa)
-        if not self.is_dit:
-            return ({"src_feat": c20_for_unet(self.vgg(x), s)},
-                    self._init_flow(ref_bm, b), init_feat)
-        cond = {"y512": x, "mask_cat": mask_cat}
-        if not m.use_gt_mask:
-            mskx, _, pyramid = self.seg(xa)
-            cond["mask_y512"] = seg_pyramid_to_latent(pyramid, s)
-            if m.use_line_mask:
-                line_feat, _ = self.line(mskx)
-                cond["line_msk"] = resize_bilinear(line_feat, (s, s), False)
-        if self.vgg is not None:
-            # the frozen VGG16 features in f32 replace the DiT's pyramid
-            # (reference evaluation.py:224-236)
-            cond["src_feat"] = c20_for_dit(self.vgg(x), s)
-        return cond, self._init_flow(ref_bm, b), init_feat
+        with trace.span("dvd.cond", pages=source512.shape[0]):
+            m = self.cfg.model
+            s, per = m.image_size, m.perception_size
+            x = source512.to(self.device, torch.float32).permute(0, 3, 1, 2)
+            x = x.contiguous()
+            b = x.shape[0]
+            init_feat = torch.zeros((b, 256, s, s), device=self.device)
+            if not self.is_dit and not m.use_init_flow:
+                with trace.span("dvd.cond.vgg"):
+                    feat = c20_for_unet(self.vgg(x), s)
+                return ({"src_feat": feat}, self._init_flow(None, b),
+                        init_feat)
+            xa = resize_bilinear(x, (per, per), True).to(self.dtype)
+            xa = xa.contiguous()
+            with trace.span("dvd.cond.geotr"):
+                ref_bm, mask_cat = self.geotr(xa)
+            if not self.is_dit:
+                with trace.span("dvd.cond.vgg"):
+                    feat = c20_for_unet(self.vgg(x), s)
+                return ({"src_feat": feat}, self._init_flow(ref_bm, b),
+                        init_feat)
+            cond = {"y512": x, "mask_cat": mask_cat}
+            if not m.use_gt_mask:
+                with trace.span("dvd.cond.seg"):
+                    mskx, _, pyramid = self.seg(xa)
+                    cond["mask_y512"] = seg_pyramid_to_latent(pyramid, s)
+                if m.use_line_mask:
+                    with trace.span("dvd.cond.line"):
+                        line_feat, _ = self.line(mskx)
+                        cond["line_msk"] = resize_bilinear(line_feat, (s, s),
+                                                           False)
+            if self.vgg is not None:
+                # the frozen VGG16 features in f32 replace the DiT's pyramid
+                # (reference evaluation.py:224-236)
+                with trace.span("dvd.cond.vgg"):
+                    cond["src_feat"] = c20_for_dit(self.vgg(x), s)
+            return cond, self._init_flow(ref_bm, b), init_feat
 
     def _init_flow(self, ref_bm: Optional[torch.Tensor], b: int
                    ) -> torch.Tensor:
@@ -296,16 +311,17 @@ class DewarpPipeline:
         (a generator on the pipeline's device).  The alternative denoisers
         are sampled without the recurrent state, as ``dvd_tpu`` samples
         them (``time_variant=False``: no re-warp, init_flow held)."""
-        tv = self.is_dit and bool(self.cfg.model.time_variant)
-        if self.is_dit:
-            cond = self._hoist_stream_tokens(self._hoist_pyramid(cond))
-        d = self.cfg.diffusion
-        return ddim_sample_loop(
-            self.model_fn, self.sched, cond, init_flow,
-            init_feat if tv else None, latent_size=self.cfg.model.image_size,
-            n_batch=d.n_batch, time_variant=tv, eta=d.eta,
-            clip_denoised=d.clip_denoised, generator=generator,
-            init_noise=init_noise).flow
+        with trace.span("dvd.sample", pages=init_flow.shape[0]):
+            tv = self.is_dit and bool(self.cfg.model.time_variant)
+            if self.is_dit:
+                cond = self._hoist_stream_tokens(self._hoist_pyramid(cond))
+            d = self.cfg.diffusion
+            return ddim_sample_loop(
+                self.model_fn, self.sched, cond, init_flow,
+                init_feat if tv else None,
+                latent_size=self.cfg.model.image_size, n_batch=d.n_batch,
+                time_variant=tv, eta=d.eta, clip_denoised=d.clip_denoised,
+                generator=generator, init_noise=init_noise).flow
 
     @torch.inference_mode()
     def dewarp_flow(self, source512: torch.Tensor,

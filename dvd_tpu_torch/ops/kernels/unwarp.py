@@ -24,6 +24,7 @@ from dvd_tpu_torch.ops.kernels.grid_sample import (gather_bilinear_grid_ref,
                                                    gather_bilinear_ref,
                                                    unnormalize)
 from dvd_tpu_torch.ops.resize import resize_bilinear
+from dvd_tpu_torch.utils import trace
 from dvd_tpu_torch.utils.grids import UNWARP_SHRINK, flow_to_grid
 
 # channel counts with a kernel instance (gray, RGB, RGBA)
@@ -122,7 +123,13 @@ def unwarp(source: torch.Tensor, flow: torch.Tensor,
     """The unwarp of :func:`unwarp_ref` (same arguments and results).  CPU
     tensors take the plain version; CUDA tensors launch the fused kernel
     or raise.  The kernel takes uint8 or f32 sources (others are cast to
-    f32 first), C in ``CHANNELS``, any flow dtype (cast to f32)."""
+    f32 first), C in ``CHANNELS``, any flow dtype (cast to f32).  The call
+    is a ``dvd.unwarp`` span (``utils/trace.py``)."""
+    with trace.span("dvd.unwarp", pages=source.shape[0]):
+        return _unwarp(source, flow, hw, shrink, out_u8)
+
+
+def _unwarp(source, flow, hw, shrink, out_u8):
     if source.device.type == "cpu":
         return unwarp_ref(source, flow, hw, shrink, out_u8)
     if not source.is_cuda:
