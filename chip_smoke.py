@@ -1663,6 +1663,27 @@ def _flow_vs_attention_twin(pipe, src, flow):
     return bar
 
 
+@contextlib.contextmanager
+def eager_conditioning(pipe):
+    """While open, the pipeline's conditioning networks run eagerly
+    (their CUDA graphs dropped, ``utils/graphs.py``), so that a kernel
+    binding patched here reaches them; closed, they warm and capture
+    again."""
+    from dvd_tpu_torch.evaluation.pipeline import graphed_nets
+    from dvd_tpu_torch.utils import graphs
+
+    on = {n: m for n, m in graphed_nets(pipe.geotr, pipe.seg,
+                                        pipe.line).items()
+          if graphs.graphs_of(m) is not None}
+    for m in on.values():
+        graphs.disable(m)
+    try:
+        yield
+    finally:
+        for n, m in on.items():
+            graphs.enable(m, n)
+
+
 def _flow_vs_conv_twin(pipe, src, flow, k1_bar):
     """The shipped bf16 flow again, from the same x_T, with the models'
     K2 (``layers.conv3x3``, patched here, never in the package) bound to
@@ -1687,14 +1708,16 @@ def _flow_vs_conv_twin(pipe, src, flow, k1_bar):
     flows = {"K2": flow}
     kernel_conv = layers.conv3x3
     try:
-        for name, fn in (("twin", twin), ("twin, channels reversed", twin_flipped)):
-            layers.conv3x3 = fn
-            before = read_launches()["conv3x3"]
-            flows[name] = pipe.dewarp_flow(
-                src, generator=torch.Generator(device="cuda").manual_seed(SEED + 5))
-            torch.cuda.synchronize()
-            if read_launches()["conv3x3"] != before:
-                raise AssertionError(f"the {name} run launched K2")
+        with eager_conditioning(pipe):
+            for name, fn in (("twin", twin),
+                             ("twin, channels reversed", twin_flipped)):
+                layers.conv3x3 = fn
+                before = read_launches()["conv3x3"]
+                flows[name] = pipe.dewarp_flow(src, generator=torch.Generator(
+                    device="cuda").manual_seed(SEED + 5))
+                torch.cuda.synchronize()
+                if read_launches()["conv3x3"] != before:
+                    raise AssertionError(f"the {name} run launched K2")
     finally:
         layers.conv3x3 = kernel_conv
     log(f"[shipped] K2 launches of one serving run by shape class, (B, Cin, "

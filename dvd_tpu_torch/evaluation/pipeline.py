@@ -29,7 +29,10 @@ Weights are drawn from a seed or loaded from converted files
 (``training/checkpoint.py:maybe_load_pipeline_weights``).  Stages 2-5 and
 the unwarp are spans of ``utils/trace.py``: ``dvd.cond`` (each
 sub-network a ``dvd.cond.<net>`` inside it), ``dvd.sample`` and
-``dvd.unwarp``.
+``dvd.unwarp``.  Served, the frozen perception nets of stages 2-4
+(GeoTrSegInf's mask branch, Seg's U2NetP, the line UNet) replay their
+forward from CUDA graphs on a card (``utils/graphs.py``); the glue
+between them runs eagerly.
 
 ``model.quantize="int8"`` serves the DiT with W8A8 blocks and decoder
 (``ops/quant.py``, ``models/dit.py``): those layers keep f32 weights (the
@@ -73,7 +76,7 @@ from dvd_tpu_torch.models.u2net import Seg, seg_pyramid_to_latent
 from dvd_tpu_torch.models.vgg import VGG16Pyramid, c20_for_dit, c20_for_unet
 from dvd_tpu_torch.ops.kernels.unwarp import native_grid, unwarp  # noqa: F401
 from dvd_tpu_torch.ops.resize import resize_bilinear
-from dvd_tpu_torch.utils import trace
+from dvd_tpu_torch.utils import graphs, trace
 from dvd_tpu_torch.utils.grids import UNWARP_SHRINK
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -121,6 +124,14 @@ def _place_dit(dit: torch.nn.Module, device: torch.device,
                     setattr(mod, name, buf.to(dtype))
 
 
+def graphed_nets(geotr: GeoTrSegInf, seg: Seg, line: TextLineUNet
+                 ) -> Dict[str, torch.nn.Module]:
+    """The frozen networks whose forward a serving pipeline replays from
+    CUDA graphs (``utils/graphs.py``), by their ``net`` name: GeoTrSegInf
+    (its mask branch), Seg's U2NetP and the text-line UNet."""
+    return {"geotr": geotr, "seg": seg.msk, "line": line}
+
+
 @dataclasses.dataclass
 class DewarpPipeline:
     """The networks + the schedule, on one device: the denoiser
@@ -158,6 +169,9 @@ class DewarpPipeline:
         drawn weights start its zero-initialised layers (the DiT's adaLN
         and final layers, the UNet's ``ZERO_INIT_LAYERS``) at zero, as the
         reference's training init; the aux nets stay frozen either way.
+        Without ``train``, GeoTrSegInf's mask branch, Seg's U2NetP and the
+        line UNet replay their forward from CUDA graphs on the card
+        (:func:`graphed_nets`, ``utils/graphs.py``).
         GeoTr's transformer is built only under ``use_init_flow`` and the
         VGG pyramid only under ``train_VGG=False``; their weights are drawn
         after the other networks', whose drawn weights do not depend on
@@ -198,6 +212,10 @@ class DewarpPipeline:
             nets["geotr"].GeoTr.to(dtype)
         if train:
             nets["dit"].requires_grad_(True)
+        else:
+            for net, module in graphed_nets(nets["geotr"], nets["seg"],
+                                            nets["line"]).items():
+                graphs.enable(module, net)
         return cls(cfg=cfg, sched=sched, device=device, dtype=dtype, **nets)
 
     @property

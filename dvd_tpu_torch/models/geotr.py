@@ -49,6 +49,7 @@ from dvd_tpu_torch.models.layers import (CrossAttention, LayerNorm,
                                          conv3x3_folded, conv_matmul)
 from dvd_tpu_torch.models.u2net import U2NetP
 from dvd_tpu_torch.ops.resize import resize_bilinear
+from dvd_tpu_torch.utils import graphs
 from dvd_tpu_torch.utils.dtypes import at_least_f32
 
 
@@ -342,9 +343,16 @@ class GeoTrSegInf(nn.Module):
                 ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
         """(N, 3, P, P) -> (the (N, P, P, 2) map or None, the soft mask
         (N, 1, mask_size, mask_size))."""
-        msk = self.msk(x)[0]
+        # the mask branch replays a CUDA graph where enabled
+        # (utils/graphs.py); GeoTr itself runs eagerly
+        msk, up = graphs.call(self, self._mask_branch, x)
         bm = self.GeoTr(msk * x) if self.GeoTr is not None else None
-        return bm, self._mask_up(msk)
+        return bm, up
+
+    def _mask_branch(self, x: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        msk = self.msk(x)[0]
+        return msk, self._mask_up(msk)
 
 
 class GeoTrSeg(GeoTrSegInf):

@@ -24,6 +24,7 @@ from dvd_tpu_torch.ops.kernels.conv3x3 import (conv3x3, conv3x3_trainable,
 from dvd_tpu_torch.ops.quant import qlinear, quantize_rows
 from dvd_tpu_torch.parallel import comm
 from dvd_tpu_torch.utils.dtypes import at_least_f32
+from dvd_tpu_torch.utils.graphs import hold
 
 
 def modulate(x: torch.Tensor, shift: torch.Tensor,
@@ -230,7 +231,9 @@ def conv3x3_folded(conv: nn.Conv2d, bn: Optional[BatchNorm], x: torch.Tensor,
             conv.weight.requires_grad or x.requires_grad):
         return conv3x3_trainable(x, conv.weight, conv.bias, conv.dilation[0],
                                  relu)
-    w, scale, bias, wk = fold_conv_bn(conv, bn, x.dtype)
+    folded = fold_conv_bn(conv, bn, x.dtype)
+    hold(folded)        # a graph captured over this call reads them
+    w, scale, bias, wk = folded
     return conv3x3(x, w, scale, bias, conv.dilation[0], relu, wk)
 
 

@@ -5,6 +5,7 @@ Classic bilinear UNet with frozen BN.  Returns both the 64-channel
 penultimate feature map (the ``line_msk`` conditioning input) and the
 1-channel logits.  Every 3x3 conv runs through K2 with its bias and BN
 folded into the epilogue; the ``up1`` DoubleConv takes Cin 1024.
+Served, the forward replays a CUDA graph (``utils/graphs.py``).
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import torch.nn.functional as F
 from dvd_tpu_torch.models.layers import (BatchNorm, conv1x1_f32,
                                          conv3x3_folded)
 from dvd_tpu_torch.ops.resize import resize_bilinear
+from dvd_tpu_torch.utils import graphs
 
 
 class DoubleConv(nn.Module):
@@ -51,6 +53,10 @@ class TextLineUNet(nn.Module):
         self.outc = nn.Conv2d(64, 1, 1)
 
     def forward(self, x) -> Tuple[torch.Tensor, torch.Tensor]:
+        # replayed from a CUDA graph where enabled (utils/graphs.py)
+        return graphs.call(self, self._forward, x)
+
+    def _forward(self, x) -> Tuple[torch.Tensor, torch.Tensor]:
         down = lambda y: F.max_pool2d(y, 2, 2)
         x1 = self.inc(x)
         x2 = self.down1(down(x1))

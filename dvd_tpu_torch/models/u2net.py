@@ -7,7 +7,8 @@ without the 128-lane pad, so this one module set replaces both the NHWC
 flax modules and ``dvd_tpu/models/planar_aux.py``.  Every REBNCONV and
 side conv runs through K2 with the conv bias and the frozen BN folded into
 its f32 (scale, bias) epilogue; the fold is computed once per loaded
-weight set (``layers.fold_conv_bn``), not per call.
+weight set (``layers.fold_conv_bn``), not per call.  Served, U2NetP's
+forward replays a CUDA graph (``utils/graphs.py``).
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import torch.nn.functional as F
 from dvd_tpu_torch.models.layers import (BatchNorm, conv1x1_f32,
                                          conv3x3_folded)
 from dvd_tpu_torch.ops.resize import resize_bilinear
+from dvd_tpu_torch.utils import graphs
 
 
 def max_pool_ceil(x: torch.Tensor) -> torch.Tensor:
@@ -123,6 +125,10 @@ class U2NetP(nn.Module):
         self.outconv = nn.Conv2d(6 * out_ch, out_ch, 1)
 
     def forward(self, x):
+        # replayed from a CUDA graph where enabled (utils/graphs.py)
+        return graphs.call(self, self._forward, x)
+
+    def _forward(self, x):
         s1 = self.stage1(x)
         s2 = self.stage2(max_pool_ceil(s1))
         s3 = self.stage3(max_pool_ceil(s2))

@@ -12,7 +12,9 @@ bf16 to ``csrc/conv3x3_wgmma.cu`` (counted in ``conv3x3.launches_wgmma``),
 f32 to ``csrc/conv3x3_f32x6.cu`` (``conv3x3.launches_f32``), which keeps
 f32 accuracy with six bf16 products over a three-way bf16 split of each
 operand (the TPU's ``precision=HIGHEST``); ``conv3x3.launches`` counts
-both.  The kernels read the weights as a K-major copy: bf16
+both, and a launch inside a CUDA graph's capture is noted as
+``("conv3x3", B, Cin, Cout, H, W, itemsize)`` for the graph's replays
+(``utils/graphs.py:launched``).  The kernels read the weights as a K-major copy: bf16
 (:func:`k_major_weights`) or its three-way split
 (:func:`k_major_weights_split`), which the frozen aux nets build once per
 weight set in the fold cache (``models/layers.py:fold_conv_bn``) and other
@@ -36,6 +38,7 @@ import torch.nn.functional as F
 
 from dvd_tpu_torch.ops.kernels import build
 from dvd_tpu_torch.utils.dtypes import at_least_f32
+from dvd_tpu_torch.utils.graphs import launched
 
 # the halo-padded input tile fills a block's shared memory at dilation 32
 # (csrc/conv3x3_wgmma.cu and csrc/conv3x3_f32x6.cu kMaxDilation)
@@ -201,6 +204,7 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
         conv3x3.launches_f32 += 1
     else:
         conv3x3.launches_wgmma += 1
+    launched("conv3x3", b, cin, cout, h, wd, x.element_size())
     return out
 
 

@@ -6,7 +6,9 @@ computed as ``dvd_tpu`` does: two separable interpolation matrices built
 in float64 numpy, applied with f32 matmuls (exact f32 on the CPU, and on
 the card while ``torch.backends.cuda.matmul.allow_tf32`` is False, its
 default).  The matrices are cached per (size, device, dtype), so a call
-makes no host-to-device copy.  NCHW in, NCHW out.
+makes no host-to-device copy; a CUDA graph captured over a bilinear
+resize holds the matrices it read (``utils/graphs.py``).  NCHW in, NCHW
+out.
 """
 
 from __future__ import annotations
@@ -16,6 +18,8 @@ from typing import Tuple
 
 import numpy as np
 import torch
+
+from dvd_tpu_torch.utils.graphs import hold
 
 
 @functools.lru_cache(maxsize=256)
@@ -78,6 +82,7 @@ def resize_bilinear(x: torch.Tensor, size: Tuple[int, int],
         return x
     a = _linear_weights(h, ho, align_corners, x.device, x.dtype)
     b = _linear_weights(w, wo, align_corners, x.device, x.dtype)
+    hold(a, b)
     return torch.matmul(torch.matmul(a, x), b.t())
 
 

@@ -30,7 +30,11 @@ The program's spans (``dvd.<layer>[.<part>]``):
 
 - ``dvd.cond`` (``DewarpPipeline.build_conditioning``) and inside it
   ``dvd.cond.geotr``, ``dvd.cond.seg``, ``dvd.cond.line``,
-  ``dvd.cond.vgg``, those that run;
+  ``dvd.cond.vgg``, those that run, and in the first three one
+  ``dvd.cond.graph`` per call of a network that replays CUDA graphs
+  (``utils/graphs.py``; attributes ``net`` and ``mode``: ``eager``,
+  ``capture`` or ``replay``, and on a replay ``launches``, the kernel
+  launches its graph holds);
 - ``dvd.sample`` (``DewarpPipeline.sampling_impl``) and inside it one
   ``dvd.sample.step`` per DDIM step (``diffusion/sampler.py``);
 - ``dvd.unwarp`` (``ops/kernels/unwarp.py``: ``unwarp_fixed``,
