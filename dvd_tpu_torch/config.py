@@ -79,7 +79,8 @@ class ModelConfig:
     # into the next (cross_model.py:615-616) so only the LAST block
     # contributes.  ``chain_blocks=False`` reproduces that (and lets us skip
     # the dead blocks at inference); True gives a sane chained DiT for
-    # from-scratch training.
+    # from-scratch training, served and benchmarked at DiT-XL/2
+    # (perfbench/configs/dvd-ditxl2-chain-serve.json).
     chain_blocks: bool = False
     # UNet-denoiser knobs (reference local.py:57-72)
     num_channels: int = 128

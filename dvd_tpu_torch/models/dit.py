@@ -23,6 +23,13 @@ Reference quirks kept (README "Reference-parity notes"): the dead-block
 quirk (``chain_blocks=False``: every block reads the original tokens and
 only the last one's output survives, so only the last block runs) and the
 sampling-time timestep remap (t > 600 -> 2, t > 300 -> 1).
+``chain_blocks=True`` runs every block, each reading the mean of the
+previous block's streams ('para'), as ``dvd_tpu``'s chained DiT does.
+
+Spans (``utils/trace.py``): ``dvd.dit.blocks`` around the blocks that run
+(attributes ``blocks``, ``streams``, ``tokens``) and, in 'para',
+``dvd.dit.decoder`` around the SATRN decoder and ``final_layer2``
+(``width``, the fused streams' width).
 
 Layout: flows (N, S, S, 2) channel-last (the sampler's and grid_sample's
 grid layout); images and feature maps NCHW; tokens (N, T, D).
@@ -56,6 +63,7 @@ from dvd_tpu_torch.models.layers import (CrossAttention, Mlp, PatchEmbed,
                                          get_2d_sincos_pos_embed, layer_norm,
                                          modulate)
 from dvd_tpu_torch.ops.resize import resize_bilinear
+from dvd_tpu_torch.utils import trace
 from dvd_tpu_torch.utils.dtypes import at_least_f32
 
 # (name, Cin, Cout, maxpool after) for latent 64/32/16 (reference
@@ -353,25 +361,32 @@ class DiT(nn.Module):
 
         if self.mode != "para":
             # one stream through every block in turn
-            for i in range(self.depth):
-                (tokens,) = getattr(self, f"blocks_{i}")(
-                    tokens, t_emb, cond, msk6, msk_line)
+            with trace.span("dvd.dit.blocks", blocks=self.depth, streams=1,
+                            tokens=tokens.shape[1]):
+                for i in range(self.depth):
+                    (tokens,) = getattr(self, f"blocks_{i}")(
+                        tokens, t_emb, cond, msk6, msk_line)
             out = self.final_layer(tokens, t_emb)
         else:
-            if self.chain_blocks:
-                for i in range(self.depth):
+            live = range(self.depth) if self.chain_blocks else \
+                (self.depth - 1,)
+            with trace.span("dvd.dit.blocks", blocks=len(live),
+                            streams=self.n_streams, tokens=tokens.shape[1]):
+                # chained: each block reads the mean of the previous one's
+                # streams; dead-block semantics: only the last block runs,
+                # as only its output survives
+                for i in live:
                     outs = getattr(self, f"blocks_{i}")(
                         tokens, t_emb, cond, msk6, msk_line, r)
-                    tokens = sum(outs) / len(outs)
-            else:
-                # dead-block semantics: only the last block's output survives
-                outs = getattr(self, f"blocks_{self.depth - 1}")(
-                    tokens, t_emb, cond, msk6, msk_line, r)
+                    if self.chain_blocks:
+                        tokens = sum(outs) / len(outs)
             fused = torch.cat(outs, dim=-1)                  # (N, T, k*D)
             n, tt, d = fused.shape
-            g = int(round(tt ** 0.5))
-            dec = self.decoder(fused.reshape(n, g, g, d), train, generator)
-            out = self.final_layer2(dec, t_emb)
+            with trace.span("dvd.dit.decoder", width=d):
+                g = int(round(tt ** 0.5))
+                dec = self.decoder(fused.reshape(n, g, g, d), train,
+                                   generator)
+                out = self.final_layer2(dec, t_emb)
         pred = unpatchify(out, self.patch_size, self.in_channels)
         return (at_least_f32(pred) + at_least_f32(init_flow),
                 at_least_f32(feat))

@@ -96,7 +96,10 @@ def kernel_head_dim(dh: int) -> int:
     head dim without an instance of its own (DiT-XL's 72) is served as the
     reference's kernel serves every head dim, zero-padded (it pads Dh to a
     multiple of 128, ``dvd_tpu/ops/pallas/attention.py:61, 73-75``): zero
-    columns change neither q k^T nor the kept columns of P V."""
+    columns change neither q k^T nor the kept columns of P V.  Such
+    launches are counted in ``attention.launches_padded`` by the caller's
+    head dim; the benchmark reads them a batch as
+    ``k1_padded_launches.device_paced`` (``perfbench/metrics/``)."""
     for d in HEAD_DIMS:
         if d >= dh:
             return d

@@ -36,7 +36,11 @@ The program's spans (``dvd.<layer>[.<part>]``):
   ``capture`` or ``replay``, and on a replay ``launches``, the kernel
   launches its graph holds);
 - ``dvd.sample`` (``DewarpPipeline.sampling_impl``) and inside it one
-  ``dvd.sample.step`` per DDIM step (``diffusion/sampler.py``);
+  ``dvd.sample.step`` per DDIM step (``diffusion/sampler.py``), and in
+  each step the DiT's ``dvd.dit.blocks`` (the blocks that run; attributes
+  ``blocks``, ``streams``, ``tokens``) and, in its 'para' mode,
+  ``dvd.dit.decoder`` (the SATRN decoder and the final layer; ``width``)
+  (``models/dit.py``);
 - ``dvd.unwarp`` (``ops/kernels/unwarp.py``: ``unwarp_fixed``,
   ``unwarp_native``, the dataset driver's ``unwarp_u8``);
 - the dataset driver (``evaluation/driver.py``): ``dvd.driver.wait``

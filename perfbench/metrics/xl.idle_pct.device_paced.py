@@ -1,0 +1,6 @@
+"""xl.idle_pct.device_paced: ``idle_pct.serve`` in the chained DiT-XL/2 cell,
+read apart from the DiT-S/2 cells' (PERF.md, section 3)."""
+
+from perfbench.harness import reader
+
+read = reader("idle_pct.serve")
