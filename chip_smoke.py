@@ -520,10 +520,10 @@ def phase_env(state):
         if "warning" in line.lower():
             log(f"[env] nvcc: {line.strip()}")
     # the tensor-core kernels: every instance must run without spills and
-    # have HGMMA in its SASS (K1: 6 head dims in each dtype; K2 bf16: 4
+    # have HGMMA in its SASS (K1: 7 head dims in bf16, 6 in f32; K2 bf16: 4
     # widths x 3 chunk sizes, and 256-pixel blocks at n128 x 2 chunk sizes;
     # K2 f32: 3 widths x 2 chunk sizes, and 256-pixel blocks at n64, CC 16)
-    wgmma_kernels = {"attention_wgmma_kernel": 6, "conv3x3_wgmma_kernel": 14,
+    wgmma_kernels = {"attention_wgmma_kernel": 7, "conv3x3_wgmma_kernel": 14,
                      "attention_f32x6_kernel": 6, "conv3x3_f32x6_kernel": 7}
     spilled = []
     for entry, regs, spills in ptxas_report(kl.build_log):
@@ -546,15 +546,15 @@ def phase_env(state):
             if len(wg) != n or min(wg.values()) <= 0:
                 raise AssertionError(f"{kernel} without HGMMA: {wg}")
     # every kernel's shared memory is dynamic, which ptxas does not report
-    from dvd_tpu_torch.ops.kernels.attention import HEAD_DIMS
+    from dvd_tpu_torch.ops.kernels.attention import HEAD_DIMS_BY_DTYPE
     from dvd_tpu_torch.ops.kernels.conv3x3 import wgmma_plan
     kib = lambda n: f"{n / 1024:.1f} KiB"
     log("[env] dynamic shared memory per block: attention_f32x6_kernel " + ", ".join(
         f"Dh {dh} {kib(kl.lib.dvd_attention_f32x6_smem_bytes(dh))}"
-        for dh in HEAD_DIMS))
+        for dh in HEAD_DIMS_BY_DTYPE[torch.float32]))
     log("[env] dynamic shared memory per block: attention_wgmma_kernel "
         + ", ".join(f"Dh {dh} {kib(kl.lib.dvd_attention_wgmma_smem_bytes(dh))}"
-                    for dh in HEAD_DIMS))
+                    for dh in HEAD_DIMS_BY_DTYPE[torch.bfloat16]))
     log("[env] dynamic shared memory per block: gather_bilinear_kernel 0; "
         "gather_bilinear_grad_kernel 0; "
         "unwarp_kernel S^2 x 8 bytes (32.0 KiB at the latent's S = 64); "
@@ -854,8 +854,8 @@ def phase_kernels(state):
             "through wgmma")
         # K1's aims: bf16 within 3x of scaled_dot_product_attention at Dh 64,
         # 2x at Dh 256 (reported, not enforced: a time is not a check)
-        # Dh 72 (DiT-XL/2: 16 heads of 72) has no instance: the wrapper
-        # zero-pads it to 128; its bound is the Dh 72 work
+        # Dh 72 (DiT-XL/2: 16 heads of 72): bf16 on its own instance, f32
+        # zero-padded by the wrapper to 128; its bound is the Dh 72 work
         aims = {}
         both = (torch.float32, bf16)
         # (shape, scale, dtypes, aim, q/k/v builder, record key suffix,
@@ -923,6 +923,26 @@ def phase_kernels(state):
                             graph_ms=cuda_graph_ms(
                                 lambda: attention(q, k, v, scale)),
                             library_graph_ms=cuda_graph_ms(library))
+
+        # DiT-XL/2's Dh 72 in bf16: the native instance beside the route it
+        # replaced (q, k and v zero-padded to 128 in device memory, the 128
+        # instance, the output sliced), equal bit for bit; both timed
+        s72 = 1 / math.sqrt(72)
+        q, k, v = _qkv(8, 16, 1024, 72, bf16, gen, dev)
+        native = attention(q, k, v, s72)
+        padded = lambda: attention(*(F.pad(t, (0, 56)) for t in (q, k, v)),
+                                   s72)[..., :72]
+        diff = (native.float() - padded().float()).abs()
+        case = f"(8, 16, 1024, 72) scale {s72:g} bfloat16"
+        log(f"  {case}: native vs padded to 128: {int((diff > 0).sum())} "
+            f"values differ (columns 64-71: {int((diff[..., 64:] > 0).sum())}),"
+            f" max {diff.max().item():.3e}")
+        if diff.max().item() > 0:
+            raise AssertionError(f"K1 {case}: native differs from padded")
+        _record(times, "attention", case + " padded to 128", padded,
+                lambda: attention_ref(q, k, v, s72),
+                lambda: F.scaled_dot_product_attention(q, k, v, scale=s72),
+                _nbytes(q, k, v, native), 4 * 8 * 16 * 1024 * 1024 * 72, bf16)
 
         log("[kernels] K2 conv3x3 (B, Cin, H, W) -> Cout, dilation: f32 "
             "through six bf16 products over a three-way split, bf16 through "
@@ -3267,7 +3287,7 @@ def _check_alt_launches(tag: str, cfg, counts: dict, dtype) -> None:
     got_k1 = dict(by_dh)
     for dh, n in padded.items():
         got_k1[dh] = n
-        got_k1[kernel_head_dim(dh)] -= n
+        got_k1[kernel_head_dim(dh, dtype)] -= n
     got_k1 = {dh: n for dh, n in got_k1.items() if n}
     k1, k2 = counts["attention_routes"], counts["conv3x3_routes"]
     bf16 = dtype == torch.bfloat16

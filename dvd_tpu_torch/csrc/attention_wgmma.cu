@@ -13,8 +13,10 @@
 //
 // What bounds it on the H100: operations.  (8, 6, 1024, 256) is 51.5 GFLOP
 // against 25 MB of traffic (0.052 ms at 989 TFLOP/s against 0.0075 ms at
-// 3.35 TB/s); (8, 6, 1024, 64) 12.9 GFLOP against 6 MB.  So both products
-// run on the tensor cores, and the copies only have to keep them fed.
+// 3.35 TB/s); (8, 6, 1024, 64) 12.9 GFLOP against 6 MB; DiT-XL/2's
+// (8, 16, 1024, 72) 38.7 GFLOP against 75 MB (0.039 ms against 0.023 ms).
+// So both products run on the tensor cores, and the copies only have to
+// keep them fed.
 //
 // Design:
 // - A block is two consumer warpgroups (256 threads); each owns 64 query
@@ -41,11 +43,23 @@
 //   in the 32-byte swizzle at Dh 16 and 32 (GeoTr's 8 heads of 32: a
 //   64-byte row is two such blocks); each block of 8 rows is one swizzle
 //   atom.  Dh 256 is four column blocks, 192 three.
-// - Sizes: Q 256*Dh bytes, a ring slot (K + V) 256*Dh bytes; 3 slots for
+// - Dh 72 (DiT-XL/2) has an instance of its own, so no caller pads q, k and
+//   v in device memory: a row is 80 columns in shared memory, one 64-column
+//   block in the 128-byte swizzle and a 16-column tail in the 32-byte one
+//   (attention.cuh:Layout).  Columns 72-79 of the tail are zeroed once, at
+//   block start, in Q and in every ring slot's K and V; the copies write
+//   columns 0-71 only (nine 16-byte chunks a row), so the zeros stay.  S
+//   takes five k16 steps (four over the block, one over the tail), P V one
+//   n64 and one n16 product, and only columns 0-71 are stored.  The zero
+//   columns add exact zeros to the f32 sums in the padded launch's order,
+//   so the output equals the Dh-128 instance's on zero-padded copies.
+// - Sizes: Q 256*Dh bytes, a ring slot (K + V) 256*Dh bytes (Dh 72: 80
+//   columns, 20 KB each, 81 KB with the 1 KB of alignment); 3 slots for
 //   Dh <= 192, 2 at Dh 256 (64 KB + 128 KB = 192 KB of the 227 KB).  The O
-//   accumulator is Dh/2 f32 registers per thread (128 at Dh 256), so Dh >= 128
-//   runs one block per SM (255 registers a thread allowed); Dh <= 64 asks
-//   for two blocks per SM (128 registers).
+//   accumulator is Dh/2 f32 registers per thread (128 at Dh 256; 40 at Dh
+//   72, 32 + 8), so Dh >= 128 runs one block per SM (255 registers a thread
+//   allowed); Dh <= 72 asks for two blocks per SM (128 registers), so one
+//   block's softmax overlaps the other's products.
 // - Rounding: p is cast to bf16 relative to the running max and normalised
 //   by the f32 row sum at the end; the TPU kernel casts the normalised p.
 //   The two differ by bf16 rounding of p (relative 2^-9 per term).
@@ -67,8 +81,12 @@ __host__ __device__ constexpr int stages() { return DH >= 256 ? 2 : 3; }
 template <int DH>
 constexpr int smem_bytes() {
   // Q, the ring, and 1 KB to align the base to a 1024-byte swizzle atom
-  return kBQ * DH * 2 + stages<DH>() * 2 * kBK * DH * 2 + 1024;
+  constexpr int kCols = Layout<DH>::kPadded;
+  return kBQ * kCols * 2 + stages<DH>() * 2 * kBK * kCols * 2 + 1024;
 }
+
+// the head dims of this kernel: both kernels' and DiT-XL/2's 72
+#define DVD_FOR_EACH_DH_BF16(X) DVD_FOR_EACH_DH(X) X(72)
 
 #define DVD_D8(i)                                                              \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), \
@@ -88,12 +106,17 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a, uint64_
 
 #undef DVD_D8
 
+__device__ __forceinline__ void st_shared_zero16(uint32_t dst) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %1, %1, %1};\n" :: "r"(dst), "r"(0)
+               : "memory");
+}
+
 // copy rows [t0, t0 + R) of a (T, DH) bf16 matrix with row stride st into a
 // swizzled tile; rows at or past T are zero-filled
 template <int DH, int R>
 __device__ __forceinline__ void load_tile(uint32_t dst, const __nv_bfloat16* src,
                                           long long st, int t0, int T, int tid) {
-  constexpr int kCpr = DH / 8;  // 16-byte chunks per row
+  constexpr int kCpr = DH / 8;  // 16-byte chunks per row (Dh 72: 9, not the pad)
   constexpr int kN = R * kCpr;
 #pragma unroll
   for (int it = 0; it < (kN + kThreads - 1) / kThreads; ++it) {
@@ -107,15 +130,15 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const __nv_bfloat16* src
 }
 
 template <int DH>
-__global__ void __launch_bounds__(kThreads, DH <= 64 ? 2 : 1) attention_wgmma_kernel(
+__global__ void __launch_bounds__(kThreads, DH <= 72 ? 2 : 1) attention_wgmma_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int H,
     int Tq, int Tk, Strides qs, Strides ks, Strides vs, Strides os,
     float scale_log2) {
   using L = Layout<DH>;
   constexpr int kS = stages<DH>();
-  constexpr uint32_t kQBytes = kBQ * DH * 2, kTileBytes = kBK * DH * 2;
-  constexpr int kNB = DH / L::kCols;  // P.V products per k step, one a block
+  constexpr uint32_t kQBytes = kBQ * L::kPadded * 2, kTileBytes = kBK * L::kPadded * 2;
+  constexpr int kNB = L::kBlocks;     // P.V products per k step, one a block
   constexpr int kNO = L::kCols / 2;   // O registers per product (n64 or n16)
   extern __shared__ uint8_t smem_raw[];
   const uint32_t sq = (smem_u32(smem_raw) + 1023) & ~1023u;
@@ -131,6 +154,15 @@ __global__ void __launch_bounds__(kThreads, DH <= 64 ? 2 : 1) attention_wgmma_ke
   const __nv_bfloat16* vb = v + b * vs.b + h * vs.h;
   __nv_bfloat16* ob = o + b * os.b + h * os.h;
   const int ntiles = (Tk + kBK - 1) / kBK;
+
+  if constexpr (L::kTail != 0) {
+    // the tail's zero columns of every row of Q and of the ring's 2 kS tiles
+    // (made visible to wgmma by the first tile's fence and barrier)
+    for (int i = tid; i < kBQ + 2 * kS * kBK; i += kThreads)
+      st_shared_zero16(i < kBQ ? sq + L::template tail_offset<kBQ>(i, 1)
+                               : ring + (i - kBQ) / kBK * kTileBytes +
+                                     L::template tail_offset<kBK>((i - kBQ) % kBK, 1));
+  }
 
   auto load_kv = [&](int tile) {
     const uint32_t slot = ring + (tile % kS) * 2 * kTileBytes;
@@ -151,6 +183,10 @@ __global__ void __launch_bounds__(kThreads, DH <= 64 ? 2 : 1) attention_wgmma_ke
   for (int n = 0; n < kNB; ++n)
 #pragma unroll
     for (int e = 0; e < kNO; ++e) acc[n][e] = 0.f;
+  [[maybe_unused]] float tail[8];  // the tail's n16 accumulator (Dh 72)
+  if constexpr (L::kTail != 0)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) tail[e] = 0.f;
   float row_max[2] = {-INFINITY, -INFINITY}, row_sum[2] = {0.f, 0.f};
   const uint32_t q_wg = sq + wg * kBM * L::kRowBytes;
 
@@ -175,6 +211,11 @@ __global__ void __launch_bounds__(kThreads, DH <= 64 ? 2 : 1) attention_wgmma_ke
       wgmma_ss_n64(s, make_desc(q_wg + blk * kBQ * L::kRowBytes + off, 16, L::kAtom, L::kMode),
                    make_desc(sk + blk * kBK * L::kRowBytes + off, 16, L::kAtom, L::kMode));
     }
+    if constexpr (L::kTail != 0)  // columns 64-79 (72-79 zero): the tail
+      wgmma_ss_n64(s, make_desc(sq + L::template tail_offset<kBQ>(wg * kBM, 0), 16,
+                                L::kTailAtom, L::kTailMode),
+                   make_desc(sk + L::template tail_offset<kBK>(0, 0), 16, L::kTailAtom,
+                             L::kTailMode));
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(s);
@@ -211,6 +252,9 @@ __global__ void __launch_bounds__(kThreads, DH <= 64 ? 2 : 1) attention_wgmma_ke
     for (int n = 0; n < kNB; ++n)
 #pragma unroll
       for (int e = 0; e < kNO; ++e) acc[n][e] *= alpha[(e / 2) % 2];
+    if constexpr (L::kTail != 0)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) tail[e] *= alpha[(e / 2) % 2];
 
     // P in wgmma's A-operand layout: k step kk takes columns 16kk..16kk+15
     uint32_t p[16];
@@ -224,6 +268,7 @@ __global__ void __launch_bounds__(kThreads, DH <= 64 ? 2 : 1) attention_wgmma_ke
     fence_regs(p);
 #pragma unroll
     for (int n = 0; n < kNB; ++n) fence_regs(acc[n]);
+    if constexpr (L::kTail != 0) fence_regs(tail);
     wgmma_fence();
 #pragma unroll
     for (int n = 0; n < kNB; ++n)
@@ -238,10 +283,17 @@ __global__ void __launch_bounds__(kThreads, DH <= 64 ? 2 : 1) attention_wgmma_ke
         else
           wgmma_rs_n16(acc[n], p + 4 * kk, bd);
       }
+    if constexpr (L::kTail != 0)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)  // the tail: one n16 product per k step
+        wgmma_rs_n16(tail, p + 4 * kk,
+                     make_desc(sv + L::template tail_offset<kBK>(kk * 16, 0),
+                               L::kTailAtom, L::kTailAtom, L::kTailMode));
     wgmma_commit();
     wgmma_wait<0>();
 #pragma unroll
     for (int n = 0; n < kNB; ++n) fence_regs(acc[n]);
+    if constexpr (L::kTail != 0) fence_regs(tail);
   }
   cp_async_wait<0>();  // no copy outlives the block (the last groups are empty)
 
@@ -263,6 +315,11 @@ __global__ void __launch_bounds__(kThreads, DH <= 64 ? 2 : 1) attention_wgmma_ke
             acc[n][4 * c + 2 * i] * inv, acc[n][4 * c + 2 * i + 1] * inv);
         *reinterpret_cast<__nv_bfloat162*>(orow + n * L::kCols + 8 * c) = val;
       }
+    if constexpr (L::kTail != 0)  // the tail's data columns; its zero ones are not stored
+#pragma unroll
+      for (int c = 0; c < L::kTail / 8; ++c)
+        *reinterpret_cast<__nv_bfloat162*>(orow + kNB * L::kCols + 8 * c) =
+            __floats2bfloat162_rn(tail[4 * c + 2 * i] * inv, tail[4 * c + 2 * i + 1] * inv);
   }
 }
 
@@ -295,7 +352,7 @@ extern "C" long long dvd_attention_wgmma_smem_bytes(int Dh) {
   switch (Dh) {
 #define DVD_CASE(D) \
     case D: return (long long)smem_bytes<D>();
-    DVD_FOR_EACH_DH(DVD_CASE)
+    DVD_FOR_EACH_DH_BF16(DVD_CASE)
 #undef DVD_CASE
     default: return -1;
   }
@@ -317,7 +374,7 @@ extern "C" int dvd_attention_fwd_wgmma(
   switch (Dh) {
 #define DVD_CASE(D) \
     case D: return launch<D>(q, k, v, o, B, H, Tq, Tk, qs, ks, vs, os, scale, s);
-    DVD_FOR_EACH_DH(DVD_CASE)
+    DVD_FOR_EACH_DH_BF16(DVD_CASE)
 #undef DVD_CASE
     default: return (int)cudaErrorInvalidValue;
   }

@@ -14,9 +14,12 @@ need each base pointer 16-byte aligned and each stride a multiple of 16
 bytes: a bf16 view that is not raises, an f32 view that is not is copied
 into a fresh, aligned buffer first.  The output is allocated as a
 (B, T, H, Dh) buffer and returned as its (B, H, T, Dh) view, so
-``merge_heads`` is a free reshape.  A head dim without a kernel instance
-(up to 256) is zero-padded to the next one (fresh, aligned copies) and the
-output sliced back.
+``merge_heads`` is a free reshape.  The instances differ by dtype: the
+bf16 kernel also has DiT-XL/2's head dim 72 (padded to 80 columns in
+shared memory only), so DiT-XL's attention reads its views in place.  A
+head dim without an instance in its dtype (up to 256: 72 in f32, the UNet
+denoiser's 96 in both) is zero-padded to the next one (fresh, aligned
+copies) and the output sliced back.
 
 When a gradient is needed, ``attention`` goes through an autograd
 Function: forward K1, backward ``attention_bwd``, the f32 recompute of
@@ -35,13 +38,17 @@ import torch
 from dvd_tpu_torch.ops.kernels import build
 from dvd_tpu_torch.utils.dtypes import at_least_f32
 
-# head dims with a kernel (DVD_FOR_EACH_DH in both sources): the mini
-# test DiT (16), GeoTr's transformer, GeoTr2 and the transformer denoiser
-# (32), DiT-S/B/L (64), the UNet denoiser's 512-channel level (128), the
-# SATRN decoder over 2-4 streams (64 * k); any other head dim up to 256
-# (DiT-XL's 72, the UNet denoiser's 96) is zero-padded to the next
-# (kernel_head_dim)
+# head dims with a kernel in both dtypes (DVD_FOR_EACH_DH in both sources):
+# the mini test DiT (16), GeoTr's transformer, GeoTr2 and the transformer
+# denoiser (32), DiT-S/B/L (64), the UNet denoiser's 512-channel level
+# (128), the SATRN decoder over 2-4 streams (64 * k)
 HEAD_DIMS = (16, 32, 64, 128, 192, 256)
+# by dtype: the bf16 kernel adds DiT-XL/2's 72 (DVD_FOR_EACH_DH_BF16 in
+# csrc/attention_wgmma.cu), so DiT-XL's bf16 attention is not padded; any
+# other head dim up to 256 (72 in f32, the UNet denoiser's 96) is
+# zero-padded to the next (kernel_head_dim)
+HEAD_DIMS_BY_DTYPE = {torch.float32: HEAD_DIMS,
+                      torch.bfloat16: tuple(sorted(HEAD_DIMS + (72,)))}
 # CUDA entry by dtype
 _ENTRIES = {torch.float32: "dvd_attention_fwd_f32x6",
             torch.bfloat16: "dvd_attention_fwd_wgmma"}
@@ -70,11 +77,11 @@ def _check(q, k, v):
     b, h, _, dh = q.shape
     if k.shape[0] != b or k.shape[1] != h or k.shape[3] != dh:
         raise ValueError(f"attention: q {tuple(q.shape)} vs k {tuple(k.shape)}")
-    kernel_head_dim(dh)
+    kernel_head_dim(dh, q.dtype)
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("attention: the head dim must be contiguous")
     # f32 views that are not aligned, and padded head dims, are copied
-    if q.dtype == torch.bfloat16 and dh in HEAD_DIMS:
+    if q.dtype == torch.bfloat16 and dh in HEAD_DIMS_BY_DTYPE[q.dtype]:
         for name, t in zip("qkv", (q, k, v)):
             if not _aligned(t):
                 raise ValueError(
@@ -91,27 +98,29 @@ def _aligned(t: torch.Tensor) -> bool:
     return not (t.data_ptr() % 16 or any(st % per16 for st in t.stride()[:3]))
 
 
-def kernel_head_dim(dh: int) -> int:
-    """The smallest head dim with a kernel instance that holds ``dh``.  A
-    head dim without an instance of its own (DiT-XL's 72) is served as the
-    reference's kernel serves every head dim, zero-padded (it pads Dh to a
-    multiple of 128, ``dvd_tpu/ops/pallas/attention.py:61, 73-75``): zero
-    columns change neither q k^T nor the kept columns of P V.  Such
-    launches are counted in ``attention.launches_padded`` by the caller's
-    head dim; the benchmark reads them a batch as
-    ``k1_padded_launches.device_paced`` (``perfbench/metrics/``)."""
-    for d in HEAD_DIMS:
+def kernel_head_dim(dh: int, dtype: torch.dtype) -> int:
+    """The smallest head dim with a kernel instance in ``dtype`` that holds
+    ``dh``.  A head dim without an instance of its own (72 in f32, the UNet
+    denoiser's 96) is served as the reference's kernel serves every head
+    dim, zero-padded (it pads Dh to a multiple of 128,
+    ``dvd_tpu/ops/pallas/attention.py:61, 73-75``): zero columns change
+    neither q k^T nor the kept columns of P V.  Such launches are counted
+    in ``attention.launches_padded`` by the caller's head dim; the
+    benchmark reads them a batch as ``k1_padded_launches.device_paced``
+    (``perfbench/metrics/``)."""
+    dims = HEAD_DIMS_BY_DTYPE[dtype]
+    for d in dims:
         if d >= dh:
             return d
     raise ValueError(f"attention: head dim {dh} above the largest kernel "
-                     f"head dim {HEAD_DIMS[-1]}")
+                     f"head dim {dims[-1]}")
 
 
 def pad_head_dim(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
-    """q, k, v zero-padded along the head dim to :func:`kernel_head_dim`
-    (the tensors themselves when it already has an instance)."""
+    """q, k, v zero-padded along the head dim to :func:`kernel_head_dim` in
+    q's dtype (the tensors themselves when it already has an instance)."""
     dh = q.shape[-1]
-    pad = kernel_head_dim(dh) - dh
+    pad = kernel_head_dim(dh, q.dtype) - dh
     if not pad:
         return q, k, v
     return tuple(torch.nn.functional.pad(t, (0, pad)) for t in (q, k, v))
@@ -196,6 +205,6 @@ attention.launches_f32 = 0
 # launches by the kernel instance's head dim (a padded head dim counts as
 # the instance it runs on)
 attention.launches_by_dh = Counter()
-# the padded launches by the caller's head dim (DiT-XL's 72, the UNet
+# the padded launches by the caller's head dim (72 in f32, the UNet
 # denoiser's 96)
 attention.launches_padded = Counter()

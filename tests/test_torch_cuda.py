@@ -20,7 +20,9 @@ from dvd_tpu_torch.evaluation.pipeline import (native_grid, unwarp_fixed,
                                                unwarp_native)
 from dvd_tpu_torch.models.layers import conv1x1_f32
 from dvd_tpu_torch.ops.grid_sample import unnormalize, warp_const_src
-from dvd_tpu_torch.ops.kernels.attention import HEAD_DIMS, attention, attention_ref
+from dvd_tpu_torch.ops.kernels.attention import (HEAD_DIMS,
+                                                 HEAD_DIMS_BY_DTYPE, attention,
+                                                 attention_ref)
 from dvd_tpu_torch.ops.kernels.conv3x3 import (conv3x3, conv3x3_ref,
                                                conv3x3_trainable,
                                                k_major_weights,
@@ -71,7 +73,7 @@ def test_attention_kernel(dev, dh, tq, tk):
 
 # ragged lengths: Tk below one 64-row K/V tile (7, 37), not a multiple of 8
 # (7, 100, 1000), Tq over one 128-row block (130, 200, 1000)
-@pytest.mark.parametrize("dh", HEAD_DIMS)
+@pytest.mark.parametrize("dh", HEAD_DIMS_BY_DTYPE[torch.bfloat16])
 @pytest.mark.parametrize("tq,tk", [(64, 64), (37, 100), (130, 7), (200, 37),
                                    (1000, 1000)])
 def test_attention_wgmma_kernel(dev, dh, tq, tk):
@@ -504,19 +506,64 @@ def test_unwarp_coordinates_through_a_ramp(dev, p, hws):
 @pytest.mark.parametrize("dtype,bar", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
 def test_attention_head_dim_72(dev, dtype, bar):
-    """DiT-XL's head dim, 72, zero-padded to the 128 instance of the route
-    its dtype takes; scale 1/sqrt(72)."""
+    """DiT-XL's head dim, 72, scale 1/sqrt(72): bf16 on the kernel's own Dh
+    72 instance, f32 zero-padded to the 128 instance (counted as padded)."""
     g = _gen()
     q, k, v = (torch.randn(2, 16, t_, 72, generator=g).to(dev, dtype)
                for t_ in (100, 130, 130))
+    bf16 = dtype == torch.bfloat16
     before, (wgmma, f32) = attention.launches, _routes()
+    by_dh, padded = dict(attention.launches_by_dh), attention.launches_padded[72]
     got = attention(q, k, v)
     assert attention.launches == before + 1 and got.shape == q.shape
-    assert _routes() == ((wgmma + 1, f32) if dtype == torch.bfloat16
-                         else (wgmma, f32 + 1))
+    assert _routes() == ((wgmma + 1, f32) if bf16 else (wgmma, f32 + 1))
+    instance = 72 if bf16 else 128
+    assert attention.launches_by_dh[instance] == by_dh.get(instance, 0) + 1
+    assert attention.launches_padded[72] == padded + (not bf16)
     want = attention_ref(q, k, v, 72 ** -0.5)
     torch.testing.assert_close(got.float(), want.float(), rtol=0,
                                atol=bar * max(1.0, want.float().abs().max().item()))
+
+
+def _xl_self_views(tq, tk, gen, dev):
+    """DiT-XL/2's self-attention: the split_heads views of the chunks of one
+    fused (8, T, 3 * 1152) qkv projection (t-stride 3456, k 2304 bytes in)."""
+    qkv = torch.randn(8, tq, 3 * 1152, generator=gen).to(dev, torch.bfloat16)
+    return tuple(z.view(8, tq, 16, 72).transpose(1, 2) for z in qkv.chunk(3, -1))
+
+
+def _xl_cross_views(tq, tk, gen, dev):
+    """DiT-XL/2's cross-attention: three separate (8, T, 1152) projections."""
+    return tuple(torch.randn(8, t_, 1152, generator=gen).to(dev, torch.bfloat16)
+                 .view(8, t_, 16, 72).transpose(1, 2) for t_ in (tq, tk, tk))
+
+
+@pytest.mark.parametrize("layout,tq,tk", [("self", 1024, 1024),
+                                          ("cross", 1024, 1024),
+                                          ("cross", 1000, 77)])
+def test_attention_head_dim_72_native_equals_padded(dev, layout, tq, tk):
+    """The bf16 Dh 72 instance reads DiT-XL/2's views in place and equals,
+    bit for bit, the Dh 128 instance on q, k and v zero-padded to 128 with
+    the output sliced (the route it replaced): the zero columns add exact
+    zeros to each f32 sum in the same order.  Both within the bf16 bar of
+    the plain twin; the native launch counts at Dh 72 and is not padded."""
+    views = {"self": _xl_self_views, "cross": _xl_cross_views}[layout]
+    q, k, v = views(tq, tk, _gen(), dev)
+    scale = 72 ** -0.5
+    by_dh72, by_dh128 = (attention.launches_by_dh[d] for d in (72, 128))
+    padded = sum(attention.launches_padded.values())
+    got = attention(q, k, v, scale)
+    assert attention.launches_by_dh[72] == by_dh72 + 1
+    assert sum(attention.launches_padded.values()) == padded
+    assert got.shape == (8, 16, tq, 72) and got.dtype == torch.bfloat16
+    assert got.transpose(1, 2).is_contiguous()  # merge_heads reshapes it free
+    qp, kp, vp = (torch.nn.functional.pad(t, (0, 56)) for t in (q, k, v))
+    want_padded = attention(qp, kp, vp, scale)[..., :72]
+    assert attention.launches_by_dh[128] == by_dh128 + 1
+    assert torch.equal(got, want_padded)
+    want = attention_ref(q, k, v, scale)
+    bar = 2e-2 * max(1.0, want.float().abs().max().item())
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=bar)
 
 
 @pytest.mark.parametrize("dtype,bar", [(torch.float32, 1e-4),

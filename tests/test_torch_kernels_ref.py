@@ -154,22 +154,48 @@ def test_gather_twin_matches_pallas(padding_mode):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_head_dim_72_zero_padding_is_exact(dtype):
-    """DiT-XL's head dim 72 has no kernel instance: the wrapper pads q, k
-    and v with zero columns to 128 and slices the output.  The padded
-    attention at scale 1/sqrt(72), never 1/sqrt(128), is the Dh 72 one:
-    zero columns add nothing to q k^T or to the kept columns of P V (the
-    f32 sums may run in another order: 1e-6; in bf16 the same one ulp)."""
-    assert kernel_head_dim(72) == 128 and kernel_head_dim(64) == 64
+    """DiT-XL's head dim 72 has no f32 kernel instance: the wrapper pads q,
+    k and v with zero columns to 128 and slices the output (the bf16
+    kernel pads to 80 in shared memory alone; the card tests hold it bit
+    for bit to its launch on copies padded to 128).  The padded attention
+    at scale 1/sqrt(72), never 1/sqrt(128), is the Dh 72 one: zero columns
+    add nothing to q k^T or to the kept columns of P V (the f32 sums may
+    run in another order: 1e-6; in bf16 the same one ulp)."""
+    assert kernel_head_dim(72, torch.float32) == 128 and \
+        kernel_head_dim(64, torch.float32) == 64
     g = torch.Generator().manual_seed(72)
     q, k, v = (torch.randn(2, 16, n, 72, generator=g).to(dtype)
                for n in (40, 56, 56))
-    qp, kp, vp = pad_head_dim(q, k, v)
+    qp, kp, vp = (torch.nn.functional.pad(x, (0, 56)) for x in (q, k, v))
     assert qp.shape[-1] == 128 and not qp[..., 72:].any()
     got = attention_ref(qp, kp, vp, 72 ** -0.5)[..., :72]
     want = attention_ref(q, k, v, 72 ** -0.5)
     atol = 1e-6 if dtype == torch.float32 else \
         2.0 ** (np.floor(np.log2(want.float().abs().max().item())) - 7)
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("dtype,dh,want", [
+    (torch.bfloat16, 72, 72), (torch.float32, 72, 128),
+    (torch.bfloat16, 96, 128), (torch.float32, 96, 128),
+    (torch.bfloat16, 64, 64), (torch.float32, 64, 64),
+    (torch.bfloat16, 20, 32), (torch.float32, 200, 256)])
+def test_kernel_head_dim_by_dtype(dtype, dh, want):
+    """The instance a head dim runs on in each dtype: the bf16 kernel has
+    DiT-XL's 72, the f32 one pads it to 128; the UNet denoiser's 96 is
+    padded to 128 in both; and ``pad_head_dim`` pads to that instance with
+    zero columns, or hands the tensors back unpadded."""
+    assert kernel_head_dim(dh, dtype) == want
+    q = torch.randn(1, 2, 5, dh).to(dtype)
+    qp, kp, vp = pad_head_dim(q, q, q)
+    assert qp.shape[-1] == want and (qp is q) == (dh == want)
+    assert torch.equal(qp[..., :dh], q) and not qp[..., dh:].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_head_dim_above_largest_raises(dtype):
+    with pytest.raises(ValueError, match="above the largest"):
+        kernel_head_dim(257, dtype)
 
 
 @pytest.mark.parametrize("padding_mode", ["zeros", "border"])
