@@ -1,7 +1,15 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port (``dvd_tpu_torch``) once on one NVIDIA GPU.
+"""Check the PyTorch/CUDA port (``dvd_tpu_torch``) on one NVIDIA GPU, and
+time its kernels alone.
 
     python3 chip_smoke.py
+
+Each phase checks the card's results: against the CPU, the kernels' plain
+twins or float64, and the kernels' launch counts and routes.  The kernels
+are timed alone (phase 2, phase 4's and 4c's K2 shape classes, phase 2b's
+int8 GEMM and its passes), each beside its twin, a library call and its
+bound; the serving, dataset and training paths are timed by the
+benchmark (``perfbench/``), not here.
 
 Phases (each prints its lines; a failing phase raises and the script
 exits non-zero -- nothing is caught):
@@ -97,32 +105,26 @@ exits non-zero -- nothing is caught):
             (within twice the change reversing the twin's input channels
             makes), and once more under torch's default TF32 switches (the
             aux nets' f32 1x1 convs unchanged, the flow within the
-            ``flow_twin`` bar); K2's launches by shape class; imgs/s and
-            ms per stage; one
-            run under torch.profiler for device time by kernel and the
-            device's busy share.
+            ``flow_twin`` bar); K2's launches by shape class, each class
+            against its twin and timed from CUDA graphs beside ``conv2d``.
 4c. shipped32  the shipped config served at ``compute_dtype=float32``
             (batch 4, 512^2): launches as phase 4's, every K1 and K2
             launch on the f32 route; K2 at each of the run's shape classes
             against its twin and timed from CUDA graphs beside f32
-            ``conv2d`` (TF32 off); imgs/s, ms per stage and one profiled
-            run (K1 and K2 device time, the device's busy share).
+            ``conv2d`` (TF32 off).
 4b. shipped_int8  the shipped config with ``quantize="int8"`` on phase 4's
             pages, weights and x_T: launches and routes as phase 4's, the
-            int8 products counted, the int8 layers' weights f32, the flow's
-            distance from phase 4's (a reading), imgs/s and ms by stage,
-            peak memory, one profiled run (int8 GEMM, elementwise and
-            reduction device time against phase 4's profile).
+            int8 products at the code's count, the int8 layers' weights
+            f32, the flow's distance from phase 4's (a reading), peak
+            memory.
 4d. flags   GeoTr's init_flow with the VGG16 conditioning served in
             bf16, batch 4: launches and routes (GeoTr's 24 K1 launches on
             the Dh 32 wgmma instance, the VGG's 7 K2 launches in f32, the
-            rest bf16), outputs, imgs/s, ms by stage with GeoTr and the VGG
-            pyramid timed alone, one profiled run.
+            rest bf16), outputs.
 4e. alt     each alt32 family served in bf16 at batch 4, 3 DDIM steps x
             2 hypotheses, 512^2: launches and routes (every K1 and K2
             launch wgmma but the VGG's 7 f32 ones), K2's shape classes,
-            outputs, imgs/s, ms by stage and one profiled run; then the
-            CLI's single-image functions under ``--set
+            outputs; then the CLI's single-image functions under ``--set
             model.train_mode=stage_1 --set model.train_VGG=False`` on a
             600x450 page (the card's machine has no PIL for ``--image``).
 5. train32  one f32 train step of the shipped training config at full
@@ -143,14 +145,12 @@ exits non-zero -- nothing is caught):
             its batches from ``cli.run_training.device_resident_iterator``
             over 32 seeded stand-in raw samples (image, soft mask, flow;
             the card's machine has no cv2 or h5py to read Doc3D files)
-            staged on the card: samples/s over 15 warm steps timed end to
-            end, ms per step by stage over 4 more (each stage
-            synchronised), loss, parameters and EMA moved, launches per
-            step (every K3 launch through its grid entry, one more a step
-            than train32's: the augmentation's warp), peak memory, and one
-            profiled step (device time by kernel, the device's busy
-            share).  Then 3 steps with ``device_dataset="off"``, the same
-            set through ``PrefetchLoader``'s host threads.
+            staged on the card, 22 steps: loss, parameters and EMA moved,
+            launches per step (every K1 and K2 launch on the wgmma route,
+            every K3 launch through its grid entry, one more a step than
+            train32's: the augmentation's warp), peak memory.  Then 3
+            steps with ``device_dataset="off"``, the same set through
+            ``PrefetchLoader``'s host threads.
 7. probe    the K5 probe entry (``dvd_tpu_torch.tools.gather_probe``) on
             the card: exact, and K5 launched.
 8. dataset  the dataset serving path.  Weights: the aux nets of a seeded
@@ -164,11 +164,9 @@ exits non-zero -- nothing is caught):
             the shipped config through ``run_benchmark`` on 100 stand-in
             pages of 900-2000 px sides (canvas 2048), batch 4, and on 6
             pages (a padded last batch): run_stats.json, launches, peak
-            memory, one finite coordinate map in [-1, 1] per page; each
-            stage's ms per batch as the mean of 10 calls.  The stand-in
-            dataset builds its pages from seeded arrays (the card's
-            machine has no PIL or cv2), so decode and resize are outside
-            the measured window.
+            memory, one finite coordinate map in [-1, 1] per page.  The
+            stand-in dataset builds its pages from seeded arrays (the
+            card's machine has no PIL or cv2).
 9. corrupt  ``cli.run_sampling.run_corruption_sweep`` (int8 serving) over 6
             stand-in pages, every corruption that needs no cv2 at
             severities 1 and 5: a ``run_stats.json`` and a coordinate map
@@ -184,7 +182,7 @@ exits non-zero -- nothing is caught):
             the 3-step cosine schedule, batch 2 at 512^2, each step's
             noise pinned: total_bpd, vb, xstart_mse and mse card against
             CPU within 1e-5 of max|ref|, both TF32 switches off; K1 and K2
-            launched (K2 all f32), the card's ms.
+            launched (K2 all f32).
 12. dist1   a 1-process NCCL world through ``--multihost``'s code path
             (``cli.run_training.init_from_env``, ``make_mesh``,
             ``train(mesh=)``): 3 shipped train steps (batch 10, the
@@ -200,8 +198,7 @@ exits non-zero -- nothing is caught):
             on the global batch under train32's bars (loss relative 1e-4,
             every gradient 1e-3 x max(1, max|g|)); serving 8 stand-in pages
             at data=2 and model=2 against this process's coordinate maps
-            within slice32's 1e-3; each layout's launches and a second
-            step's ms (a reading: gloo on one card is not a rate).
+            within slice32's 1e-3; each layout's launches.
 
 The line before the last is the per-kernel JSON record (every kernel and
 route, each with the launches of the run that drives it: K1-K4 from the
@@ -1519,31 +1516,6 @@ def phase_slice32(state):
         "slice32")
 
 
-def _warm_stages(pipe, src, gen, iters: int) -> dict:
-    """Seconds per batch of each serving stage, the mean of ``iters`` warm
-    runs (host clock around synchronised work)."""
-    from dvd_tpu_torch.evaluation.pipeline import unwarp_fixed
-
-    stage = {"conditioning": 0.0, "sampling": 0.0, "unwarp": 0.0}
-    with torch.inference_mode():
-        for _ in range(iters):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            cond, init_flow, init_feat = pipe.build_conditioning(src)
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            flow = pipe.sampling_impl(cond, init_flow, init_feat, gen)
-            torch.cuda.synchronize()
-            t2 = time.perf_counter()
-            unwarp_fixed(src, flow)
-            torch.cuda.synchronize()
-            t3 = time.perf_counter()
-            stage["conditioning"] += (t1 - t0) / iters
-            stage["sampling"] += (t2 - t1) / iters
-            stage["unwarp"] += (t3 - t2) / iters
-    return stage
-
-
 def phase_shipped(state):
     from dvd_tpu_torch.cli.run_sampling import dewarp_image
     from dvd_tpu_torch.config import default_config
@@ -1599,27 +1571,10 @@ def phase_shipped(state):
     _tf32_default_run(pipe, src, flow)
     _time_conv_classes(shapes, state["label"])
 
-    iters = 5
-    stage = _warm_stages(pipe, src, cuda_gen, iters)
-    total = sum(stage.values())
-    state["imgs_per_sec"] = batch / total
-    log(f"[shipped] {batch / total:.2f} imgs/s at batch {batch} "
-        f"({total * 1e3:.1f} ms per batch, mean of {iters} warm runs; "
-        f"{state['label']})")
-    for k, v in stage.items():
-        log(f"[shipped]   {k}: {v * 1e3:.2f} ms per batch, "
-            f"{v * 1e3 / batch:.2f} ms/img ({state['label']})")
-    log(f"[shipped] peak device memory of the shipped runs "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    state["shipped"].update(imgs_per_sec=batch / total, stage=stage,
-                            profile=_profile(pipe, src, cuda_gen,
-                                             state["label"]))
-
     # the CLI's array function on a 600x450 page (the unwarp runs K3 at a
     # size the TPU kernel's gate rejects)
     page = (_page(1, 450, 600, gen)[0] * 255).round().numpy()
     before = read_launches()["unwarp"]
-    t0 = time.perf_counter()
     out_img, out_flow = dewarp_image(pipe, page, seed=SEED)
     torch.cuda.synchronize()
     if out_img.shape != (450, 600, 3) or out_flow.shape != (m.image_size, m.image_size, 2) \
@@ -1627,9 +1582,8 @@ def phase_shipped(state):
         raise AssertionError("CLI outputs malformed")
     if read_launches()["unwarp"] <= before:
         raise AssertionError("the CLI unwarp did not launch the fused kernel")
-    log(f"[shipped] cli dewarp_image 600x450 page: {out_img.shape} in "
-        f"{time.perf_counter() - t0:.3f} s, the fused unwarp launched "
-        f"{read_launches()['unwarp'] - before}x")
+    log(f"[shipped] cli dewarp_image 600x450 page: {out_img.shape}, the "
+        f"fused unwarp launched {read_launches()['unwarp'] - before}x")
 
 
 def _flow_vs_attention_twin(pipe, src, flow):
@@ -1859,58 +1813,6 @@ def _time_conv_classes(shapes: Counter, label: str, tag: str = "shipped",
         f"bound {total['bound']:.4f} ms; back to back from Python "
         f"{total['eager']:.3f} ms; plain twin {total['plain']:.3f} ms ({label})")
     return dict(total, max_err=max_err)
-
-
-def _profile(pipe, src, gen, label, top=25,
-             need=("conv3x3_wgmma_kernel", "gather_bilinear_kernel",
-                   "unwarp_kernel")):
-    """One warm main-path run under torch.profiler: device time by kernel
-    and the device's busy share of the wall time; each kernel entry in
-    ``need`` must show device time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from dvd_tpu_torch.evaluation.pipeline import unwarp_fixed
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        unwarp_fixed(src, pipe.dewarp_flow(src, generator=gen))
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    rows = _profile_rows(prof)
-    busy = sum(r[1] for r in rows) / 1e3
-    log(f"[profile] one main-path run: wall {wall * 1e3:.1f} ms (profiled), "
-        f"device busy {busy:.1f} ms ({busy / (wall * 1e3):.1%}); {label}")
-    for key, us, n in rows[:top]:
-        log(f"[profile]   {us / 1e3:9.3f} ms {us / 1e3 / busy:6.1%} x{n:<5d} "
-            f"{key[:110]}")
-    shares = _kernel_shares(rows, busy, "run")
-    for entry in need:
-        if shares[entry] <= 0:
-            raise AssertionError(f"the profiled serving run shows no "
-                                 f"{entry} time")
-    return rows, busy, wall
-
-
-# the profiler's kernel names of K1-K4 (a template's name ends in "<")
-F32_ENTRIES = {"K1": "attention_f32x6_kernel", "K2": "conv3x3_f32x6_kernel"}
-KERNEL_ENTRIES = (("K1", "attention_wgmma_kernel"), ("K1", F32_ENTRIES["K1"]),
-                  ("K2", "conv3x3_wgmma_kernel"), ("K2", F32_ENTRIES["K2"]),
-                  ("K3", "gather_bilinear_kernel"), ("K3", "unwarp_kernel"),
-                  ("K4", "gather_bilinear_grad_kernel"))
-
-
-def _kernel_shares(rows, busy, what) -> dict:
-    """Device ms of each kernel entry in a profile, logged with its share
-    of the profiled device time."""
-    out = {}
-    for name, entry in KERNEL_ENTRIES:
-        mine = [r for r in rows if entry + "<" in r[0]]
-        ms = out[entry] = sum(r[1] for r in mine) / 1e3
-        log(f"[profile] {name} {entry}: {ms:.3f} ms in {sum(r[2] for r in mine)} "
-            f"launches, {ms / busy:.1%} of the {what}'s device time")
-    return out
 
 
 # ---------------------------------------------------------------- phases 5-6
@@ -2151,62 +2053,6 @@ def _loss_warp_points(record: dict, dev: str):
         gs.gather_bilinear_grad = kernel
 
 
-class StageSpans:
-    """Times ``train()``'s steps through its stage spans ("prep", then
-    "loss_backward" around "rollout", then "optimizer_ema").
-
-    Steps [0, warm) warm up.  Steps [warm, warm + measured) are timed end
-    to end: one device synchronise before the first and one after the
-    last, none between, so the window holds all that ``train()`` does in
-    them (data, batch prep, the step, logging).  Each of the next
-    ``staged`` steps ends every stage with a synchronise, for the split by
-    stage.  The step after them runs under torch.profiler."""
-
-    def __init__(self, warm: int, measured: int, staged: int):
-        self.warm, self.measured, self.staged = warm, measured, staged
-        self.profile_step = warm + measured + staged
-        self.step = 0
-        self.times: dict = {}
-        self.window = None
-        self.prof = None
-        self.wall = None
-
-    def __call__(self, name):
-        import contextlib
-
-        @contextlib.contextmanager
-        def span():
-            s = self.step
-            staged = self.warm + self.measured <= s < self.profile_step
-            if name == "prep" and s == self.warm:
-                torch.cuda.synchronize()
-                self.window = time.perf_counter()
-            if name == "prep" and s == self.profile_step:
-                from torch.profiler import ProfilerActivity, profile
-                torch.cuda.synchronize()
-                self.prof = profile(activities=[ProfilerActivity.CPU,
-                                                ProfilerActivity.CUDA])
-                self.prof.__enter__()
-                self.wall = time.perf_counter()
-            if staged:
-                torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            yield
-            if staged:
-                torch.cuda.synchronize()
-                self.times.setdefault(name, []).append(time.perf_counter() - t0)
-            if name == "optimizer_ema":
-                if s == self.warm + self.measured - 1:
-                    torch.cuda.synchronize()
-                    self.window = time.perf_counter() - self.window
-                if s == self.profile_step:
-                    torch.cuda.synchronize()
-                    self.wall = time.perf_counter() - self.wall
-                    self.prof.__exit__(None, None, None)
-                self.step += 1
-        return span()
-
-
 def _row_logger():
     """A KVLogger that writes nothing and keeps each dumped row in
     ``rows``."""
@@ -2223,22 +2069,6 @@ def _row_logger():
     return logger
 
 
-def _profile_rows(prof):
-    """(name, device us, count) of the kernels a profile recorded, largest
-    first.  Kernel (device-side) events only: an aten op's own device time
-    repeats the kernels it launched, and a user annotation's (the
-    optimizer's step) spans the kernels inside it."""
-    from torch.autograd import DeviceType
-
-    rows = [(e.key, e.self_device_time_total, e.count)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
-            and not getattr(e, "is_user_annotation", False)]
-    if not rows:
-        raise RuntimeError("the profiler recorded no device time")
-    return sorted(rows, key=lambda r: -r[1])
-
-
 # the stand-in raw training set: its 32 samples stage on the card (about
 # 3.9 MB each) and span three epochs of batch 10 in phase 6's 22 steps
 TRAIN_SET = 32
@@ -2251,8 +2081,7 @@ def phase_train(state):
     from dvd_tpu_torch.evaluation.pipeline import DewarpPipeline
     from dvd_tpu_torch.training.train_loop import train
 
-    spans = StageSpans(warm=2, measured=15, staged=4)
-    steps = spans.profile_step + 1
+    steps = 22
     ds = StandInRawPages(TRAIN_SET, SEED + 8)
     with tempfile.TemporaryDirectory() as ws:
         # the shipped config (on_device_aug, the device-resident set), but
@@ -2277,25 +2106,19 @@ def phase_train(state):
             f"{cfg.data.inter_t}/{cfg.data.inter_T}); {steps} steps from the "
             f"device-resident set of {TRAIN_SET} stand-in raw samples "
             f"({state['label']})")
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
         data = device_resident_iterator(cfg, ds, SEED + 8, "cuda")
         first = next(data)       # staging happens at the first batch
-        torch.cuda.synchronize()
-        log(f"[train] staged and gathered the first batch in "
-            f"{time.perf_counter() - t0:.2f} s: "
+        log("[train] staged and gathered the first batch: "
             + ", ".join(f"{k} {tuple(v.shape)} {str(v.dtype)[6:]}"
                         for k, v in first.items()))
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
-        t0 = time.perf_counter()
         with conv_shape_counter(Counter()) as shapes:
             train_state = train(cfg, data, max_steps=steps, device="cuda",
-                                logger=logger, spans=spans)
+                                logger=logger)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = read_launches()
+        counts, k1 = read_launches(), routes("attention")
         check_conv_route("train", torch.bfloat16)
         check_gather_route("train")
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -2308,12 +2131,15 @@ def phase_train(state):
     state["train_launches"] = counts
     if train_state.step != steps:
         raise AssertionError(f"train() took {train_state.step} steps")
-    log(f"[train] train() ran {steps} steps in {wall:.2f} s (pipeline set-up "
-        f"included) and wrote {files}")
+    log(f"[train] train() ran {steps} steps and wrote {files}")
     per_step = {k: v / steps for k, v in counts.items()}
-    log(f"[train] kernel launches in the run: {counts}; per step {per_step}")
+    log(f"[train] kernel launches in the run: {counts}; per step {per_step}; "
+        f"K1 by route {k1}")
     if min(counts[k] for k in TRAIN_KERNELS) <= 0:
         raise AssertionError(f"a kernel of the path did not launch: {counts}")
+    if k1 != {"wgmma": counts["attention"], "f32": 0}:
+        raise AssertionError(f"K1 routes {k1}: bf16 training must run every "
+                             f"attention through wgmma")
     # one step's loss and gradients (train32, float wire) plus the
     # augmentation's one warp of image + mask
     want_k3 = state["train32_launches"]["gather_bilinear"] + 1
@@ -2347,40 +2173,7 @@ def phase_train(state):
         f"{ema_moved:.3e}")
     if not (moved > 0 and 0 < ema_moved < moved):
         raise AssertionError("parameters or EMA did not move")
-
-    step_s = spans.window / spans.measured
-    log(f"[train] {b / step_s:.2f} samples/s ({step_s * 1e3:.1f} ms per step: "
-        f"{spans.measured} warm steps of train() timed end to end, one "
-        f"synchronise before and one after; {state['label']})")
-    per = {k: sum(v) / len(v) for k, v in spans.times.items()}
-    fwd_bwd = per["loss_backward"] - per["rollout"]
-    staged_s = per["prep"] + per["loss_backward"] + per["optimizer_ema"]
-    log(f"[train] by stage, mean of {spans.staged} further steps with every "
-        f"stage ended by a synchronise: {staged_s * 1e3:.1f} ms per step "
-        f"in all ({state['label']})")
-    for name, ms in (("batch prep (gather, augmentation, frozen "
-                      "Seg/line-UNet)", per["prep"]),
-                     ("rollout (2 model calls, no grad)", per["rollout"]),
-                     ("pyramid + supervised forward + backward", fwd_bwd),
-                     ("optimizer + EMA", per["optimizer_ema"])):
-        log(f"[train]   {name}: {ms * 1e3:.2f} ms per step ({state['label']})")
     log(f"[train] peak device memory {peak:.2f} GiB ({state['label']})")
-    state["train_samples_per_sec"] = b / step_s
-
-    rows = _profile_rows(spans.prof)
-    busy = sum(r[1] for r in rows) / 1e3
-    log(f"[profile] one train step: wall {spans.wall * 1e3:.1f} ms "
-        f"(profiled, unsynchronised), device busy {busy:.1f} ms "
-        f"({busy / (spans.wall * 1e3):.1%}); {state['label']}")
-    for key, us, n in rows[:25]:
-        log(f"[profile]   {us / 1e3:9.3f} ms {us / 1e3 / busy:6.1%} x{n:<5d} "
-            f"{key[:110]}")
-    shares = _kernel_shares(rows, busy, "step")
-    for entry in ("attention_wgmma_kernel", "conv3x3_wgmma_kernel",
-                  "gather_bilinear_kernel", "gather_bilinear_grad_kernel"):
-        if shares[entry] <= 0:
-            raise AssertionError(f"the profiled bf16 train step shows no "
-                                 f"{entry} time")
     _train_host_loader(state, ds, want_k3)
 
 
@@ -2406,21 +2199,18 @@ def _train_host_loader(state, ds, want_k3, steps: int = 3):
         logger = _row_logger()
         torch.cuda.synchronize()
         reset_launches()
-        t0 = time.perf_counter()
         try:
             train(cfg, loader, max_steps=steps, device="cuda", logger=logger)
         finally:
             loader.close()
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
         counts = read_launches()
         check_gather_route("train, host loader")
         files = sorted(os.listdir(os.path.join(ws, cfg.name)))
     losses = [r["loss"] for r in logger.rows]
     log(f"[train] host loader (device_dataset=off, PrefetchLoader, "
-        f"{cfg.data.n_threads} threads): {steps} steps in {wall:.2f} s, "
-        f"pipeline set-up included; loss {losses}; launches {counts}; "
-        f"wrote {files}")
+        f"{cfg.data.n_threads} threads): {steps} steps; loss {losses}; "
+        f"launches {counts}; wrote {files}")
     if len(losses) != steps or not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"host-loader run losses {losses}")
     if counts["gather_bilinear"] != steps * want_k3 or \
@@ -2602,10 +2392,10 @@ def _native_check(pipe):
                     TOL["native_u8"])
 
 
-def _driver_run(pipe, n_pages, out_dir, label, card):
+def _driver_run(pipe, n_pages, out_dir, label):
     """run_benchmark on ``n_pages`` stand-in pages at the shipped batch,
     counted; checks one finite coordinate map in [-1, 1] per page.
-    Returns the stats, the launches, the peak GiB and the dataset."""
+    Returns the launches."""
     from dvd_tpu_torch.evaluation.driver import run_benchmark
 
     cfg = pipe.cfg
@@ -2614,12 +2404,10 @@ def _driver_run(pipe, n_pages, out_dir, label, card):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    t0 = time.perf_counter()
     stats = run_benchmark(pipe, ds, out_dir,
                           batch_size=cfg.data.eval_device_batch, seed=SEED,
                           save_outputs=False, save_coord_maps=True)
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
     counts = read_launches()
     check_conv_route("dataset", torch.bfloat16)
     check_gather_route("dataset")
@@ -2641,40 +2429,10 @@ def _driver_run(pipe, n_pages, out_dir, label, card):
     log(f"[dataset] {label}: {n_pages} pages, sides "
         f"{min(sides)}-{max(sides)} px, canvas "
         f"{ds.pad_to}^2, batch {cfg.data.eval_device_batch}: run_benchmark "
-        f"{wall:.2f} s wall; run_stats.json {json.dumps(stats)} (stand-in "
-        f"pages: the host's decode and resize are outside the window; {card})")
+        f"served {stats['images']} images")
     log(f"[dataset]   launches {counts}; peak device memory {peak:.2f} GiB; "
         f"{len(maps)} coordinate maps, finite, within [-1, 1]")
-    return stats, counts, peak, ds
-
-
-def _stage_ms(pipe, ds, iters: int = 10) -> dict:
-    """ms per batch of each stage on the dataset's first batch, as
-    ``run_benchmark`` feeds it: mean of ``iters`` back-to-back calls
-    (CUDA events, so the device's waits on the host count), where
-    ``run_stats.json`` keeps one synchronised re-run of each."""
-    from dvd_tpu_torch.evaluation.driver import batch_generator, unwarp_u8
-
-    batch = next(iter(ds.batches(pipe.cfg.data.eval_device_batch)))
-    src = torch.from_numpy(np.clip(
-        np.asarray(batch["source_image"]) * 255.0 + 0.5, 0, 255
-    ).astype(np.uint8)).cuda().float() / 255.0
-    padded = torch.from_numpy(batch["source_padded"]).cuda()
-    hw = torch.from_numpy(batch["hw"]).cuda()
-    gen = batch_generator(pipe.device, SEED, 0)
-
-    def dewarp():
-        return pipe.sampling_impl(*pipe.build_conditioning(src), gen)
-
-    with torch.inference_mode():
-        flow = dewarp()
-        ms = {"conditioning": cuda_time_ms(
-                  lambda: pipe.build_conditioning(src), iters, 1),
-              "dewarp": cuda_time_ms(dewarp, iters, 1),
-              "unwarp": cuda_time_ms(lambda: unwarp_u8(padded, hw, flow),
-                                     iters, 1)}
-    ms["sample"] = ms.pop("dewarp") - ms["conditioning"]
-    return ms
+    return counts
 
 
 def phase_dataset(state):
@@ -2689,26 +2447,11 @@ def phase_dataset(state):
     pipe = _dataset_weights(state, cfg)
     _native_check(pipe)
     out = os.path.join(state["workdir"], "vis_hp")
-    stats, counts, peak, ds = _driver_run(pipe, 100, os.path.join(out, "p100"),
-                                          "main run", state["label"])
+    counts = _driver_run(pipe, 100, os.path.join(out, "p100"), "main run")
     if min(counts[k] for k in ("attention", "conv3x3", "gather_bilinear",
                                "unwarp")) <= 0:
         raise AssertionError(f"a kernel of the path did not launch: {counts}")
-    st = stats["stage_seconds_per_batch"]
-    log(f"[dataset] steady state {stats['imgs_per_sec']} imgs/s over "
-        f"{stats['images'] - cfg.data.eval_device_batch} pages; per batch "
-        f"(one synchronised re-run of the last): conditioning "
-        f"{st['conditioning'] * 1e3:.1f} ms, sample {st['sample'] * 1e3:.1f} "
-        f"ms, unwarp {st['unwarp'] * 1e3:.1f} ms ({state['label']})")
-    ms = _stage_ms(pipe, ds)
-    log(f"[dataset] per batch, mean of 10 back-to-back calls each: "
-        f"conditioning {ms['conditioning']:.2f} ms, sample "
-        f"{ms['sample']:.2f} ms, unwarp {ms['unwarp']:.2f} ms "
-        f"({state['label']})")
-    stats6, _, _, _ = _driver_run(pipe, 6, os.path.join(out, "p6"),
-                                  "padded last batch", state["label"])
-    state["dataset"] = dict(stats=stats, launches=counts, peak_gib=peak,
-                            stage_ms=ms, stats6=stats6)
+    _driver_run(pipe, 6, os.path.join(out, "p6"), "padded last batch")
 
 
 # ---------------------------------------------------------------- int8
@@ -2881,34 +2624,11 @@ def phase_slice_int8(state):
         raise AssertionError(f"int8 code flips {stats}")
 
 
-# profiler names: cuBLAS(Lt)'s int8 GEMMs, and the elementwise and reduction
-# kernels of the quantize and rescale passes (and of the rest of the model)
-INT8_GEMM_NAME = re.compile(r"imma|i8i8|s8s8|int8|_s8_|i8_", re.I)
-GEMM_NAME = re.compile(r"gemm|nvjet|xmma|cutlass|cublas", re.I)
-
-
-def _kernel_groups(rows, busy, what) -> dict:
-    """Device ms of the int8 GEMMs, the other GEMMs, the elementwise and
-    the reduction kernels in a profile, logged with their shares."""
-    groups = {"int8 GEMM": lambda k: bool(INT8_GEMM_NAME.search(k)),
-              "other GEMM": lambda k: bool(GEMM_NAME.search(k))
-              and not INT8_GEMM_NAME.search(k),
-              "elementwise": lambda k: "elementwise" in k,
-              "reduction": lambda k: "reduce" in k.lower()}
-    out = {}
-    for name, pick in groups.items():
-        mine = [r for r in rows if pick(r[0])]
-        ms = out[name] = sum(r[1] for r in mine) / 1e3
-        log(f"[profile] {what}: {name} {ms:.3f} ms in "
-            f"{sum(r[2] for r in mine)} launches ({ms / busy:.1%} of busy)")
-    return out
-
-
 def phase_shipped_int8(state):
     """The shipped config with ``quantize="int8"``: the main path once
-    (counted, routes checked), the flow's distance from the bf16 run on
-    the same pages, weights and x_T, imgs/s and ms by stage, peak
-    memory, and one profiled run."""
+    (counted, routes checked, the int8 products at the code's count), the
+    flow's distance from the bf16 run on the same pages, weights and x_T,
+    peak memory."""
     from dvd_tpu_torch.config import default_config
     from dvd_tpu_torch.evaluation.pipeline import DewarpPipeline, unwarp_fixed
     from dvd_tpu_torch.ops import quant
@@ -2947,7 +2667,7 @@ def phase_shipped_int8(state):
     expected = _int8_expected(pipe)
     log(f"[shipped_int8] launches in one main-path run: {counts}; K1 by "
         f"route {k1}; int8 products {n_int8} (the code's count {expected})")
-    if counts != SERVE_LAUNCHES or n_int8 != expected \
+    if counts != SERVE_LAUNCHES or n_int8 != expected or expected <= 0 \
             or k1 != {"wgmma": SERVE_LAUNCHES["attention"], "f32": 0}:
         raise AssertionError(f"shipped_int8 launches {counts}, K1 {k1}, int8 "
                              f"{n_int8} (expected {expected})")
@@ -2964,36 +2684,11 @@ def phase_shipped_int8(state):
         f"image range [{out.min().item():.3f}, {out.max().item():.3f}]")
     state["shipped_int8"] = dict(out=out.cpu(), launches=n_int8)
 
-    iters = 5
-    stage = _warm_stages(pipe, src, cuda_gen, iters)
-    total = sum(stage.values())
-    bf16 = state["shipped"]
-    log(f"[shipped_int8] {batch / total:.2f} imgs/s at batch {batch} "
-        f"({total * 1e3:.1f} ms per batch, mean of {iters} warm runs; the "
-        f"bf16 run read {bf16['imgs_per_sec']:.2f}; {label})")
-    for k, v in stage.items():
-        log(f"[shipped_int8]   {k}: {v * 1e3:.2f} ms per batch (bf16 "
-            f"{bf16['stage'][k] * 1e3:.2f}; {label})")
-    rows, busy, _ = _profile(pipe, src, cuda_gen, label)
-    int8 = _kernel_groups(rows, busy, "int8 run")
-    b_rows, b_busy, _ = bf16["profile"]
-    ref = _kernel_groups(b_rows, b_busy, "bf16 run")
-    for key, us, n in rows:
-        if INT8_GEMM_NAME.search(key):
-            log(f"[profile]   int8 GEMM kernel {us / 1e3:.3f} ms x{n}: "
-                f"{key[:110]}")
-    log(f"[shipped_int8] device busy {busy:.1f} ms against bf16's "
-        f"{b_busy:.1f} ms; GEMMs + elementwise + reductions "
-        f"{sum(int8.values()):.3f} ms against {sum(ref.values()):.3f} ms")
-    if int8["int8 GEMM"] <= 0:
-        raise AssertionError("the profiled int8 run shows no int8 GEMM time")
-
 
 def phase_shipped32(state):
     """The shipped config served at ``compute_dtype=float32``, batch 4,
-    512^2 (a reading for the f32 configuration's users): launches and
-    routes, outputs, K2 by shape class against f32 ``conv2d``, imgs/s, ms
-    by stage and one profiled run."""
+    512^2: launches and routes (every K1 and K2 launch on the f32 route),
+    outputs, K2 by shape class against f32 ``conv2d``."""
     from dvd_tpu_torch.config import default_config
     from dvd_tpu_torch.evaluation.pipeline import DewarpPipeline, unwarp_fixed
 
@@ -3035,26 +2730,8 @@ def phase_shipped32(state):
                              "outside [-1, 1]")
     log(f"[shipped32] flow |max| {flow.abs().max().item():.4f}; unwarped "
         f"image range [{out.min().item():.3f}, {out.max().item():.3f}]")
-    conv = _time_conv_classes(shapes, label, "shipped32", torch.float32)
+    _time_conv_classes(shapes, label, "shipped32", torch.float32)
 
-    iters = 3
-    stage = _warm_stages(pipe, src, cuda_gen, iters)
-    total = sum(stage.values())
-    log(f"[shipped32] {batch / total:.2f} imgs/s at batch {batch} "
-        f"({total * 1e3:.1f} ms per batch, mean of {iters} warm runs; "
-        f"{label})")
-    for k, v in stage.items():
-        log(f"[shipped32]   {k}: {v * 1e3:.2f} ms per batch ({label})")
-    rows, busy, wall = _profile(pipe, src, cuda_gen, label,
-                                need=("unwarp_kernel",))
-    for name, entry in F32_ENTRIES.items():
-        ms = sum(r[1] for r in rows if entry + "<" in r[0]) / 1e3
-        log(f"[shipped32] {name} f32 device time in the profiled run: "
-            f"{ms:.3f} ms ({label})")
-        if ms <= 0:
-            raise AssertionError(f"the profiled f32 run shows no {name} time")
-    state["shipped32"] = dict(imgs_per_sec=batch / total, stage=stage,
-                              busy_ms=busy, conv_classes=conv)
 
 # the production DiT's other conditioning configurations (the flags of
 # dvd_tpu's pipeline and train step the port serves and trains)
@@ -3096,34 +2773,11 @@ def phase_flags32(state):
         "conv3x3_f32_vgg": first["vgg_k2"]["f32"]}
 
 
-def _flag_stage_ms(pipe, src, iters: int) -> dict:
-    """GeoTr and the VGG pyramid alone, ms per batch, the mean of
-    ``iters`` synchronised calls on the conditioning's own inputs."""
-    from dvd_tpu_torch.ops.resize import resize_bilinear
-
-    per = pipe.cfg.model.perception_size
-    x = src.permute(0, 3, 1, 2).contiguous()
-    xa = resize_bilinear(x, (per, per), True).to(pipe.dtype).contiguous()
-    out = {}
-    with torch.inference_mode():
-        for name, fn in (("GeoTr", lambda: pipe.geotr(xa)),
-                         ("VGG", lambda: pipe.vgg(x))):
-            fn()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-            out[name] = (time.perf_counter() - t0) / iters * 1e3
-    return out
-
-
 def phase_flags(state):
     """FLAG_CONFIGS' first (GeoTr's init_flow and the VGG conditioning)
     served in bf16 at batch 4, 512^2: launches and routes (GeoTr's 24 K1
     launches on the Dh 32 wgmma instance, the VGG's 7 K2 launches f32, the
-    rest bf16), outputs, imgs/s, ms by stage (GeoTr and VGG timed alone
-    inside conditioning) and one profiled run."""
+    rest bf16), outputs."""
     from dvd_tpu_torch.config import default_config
     from dvd_tpu_torch.evaluation.pipeline import DewarpPipeline, unwarp_fixed
 
@@ -3162,8 +2816,9 @@ def phase_flags(state):
     if k1 != {"wgmma": counts["attention"], "f32": 0} or \
             by_dh.get(32, 0) != GEOTR_K1:
         raise AssertionError(f"flags: K1 routes {k1}, by head dim {by_dh}")
-    if vgg_k2 != want_vgg or k2 != {"wgmma": counts["conv3x3"] - vgg_k2["f32"],
-                                    "f32": vgg_k2["f32"]}:
+    if vgg_k2 != want_vgg or k2["wgmma"] <= 0 or \
+            k2 != {"wgmma": counts["conv3x3"] - vgg_k2["f32"],
+                   "f32": vgg_k2["f32"]}:
         raise AssertionError(f"flags: K2 routes {k2}, the VGG's {vgg_k2}: "
                              f"{want_vgg} expected, the rest bf16")
     check_gather_route("flags")
@@ -3181,26 +2836,6 @@ def phase_flags(state):
         f"{flow.abs().max().item():.4f}; unwarped image range "
         f"[{out.min().item():.3f}, {out.max().item():.3f}]")
     state["flags_launches"] = {"attention_dh32": by_dh[32]}
-
-    iters = 5
-    stage = _warm_stages(pipe, src, cuda_gen, iters)
-    total = sum(stage.values())
-    alone = _flag_stage_ms(pipe, src, iters)
-    log(f"[flags] {batch / total:.2f} imgs/s at batch {batch} "
-        f"({total * 1e3:.1f} ms per batch, mean of {iters} warm runs; "
-        f"{label})")
-    for k, v in stage.items():
-        log(f"[flags]   {k}: {v * 1e3:.2f} ms per batch ({label})")
-    for k, v in alone.items():
-        log(f"[flags]     of conditioning, {k} alone: {v:.2f} ms per batch "
-            f"({label})")
-    rows, busy, wall = _profile(
-        pipe, src, cuda_gen, label,
-        need=("attention_wgmma_kernel", "conv3x3_wgmma_kernel",
-              "conv3x3_f32x6_kernel", "gather_bilinear_kernel",
-              "unwarp_kernel"))
-    state["flags"] = dict(imgs_per_sec=batch / total, stage=stage,
-                          alone=alone, busy_ms=busy, wall_ms=wall * 1e3)
 
 
 def phase_flags_train32(state):
@@ -3468,7 +3103,7 @@ def phase_alt_train32(state):
 def phase_alt(state):
     """Each family served in bf16 at the shipped batch 4, 3 DDIM steps x 2
     hypotheses, 512^2 pages: launches and routes, outputs, K2's shape
-    classes, imgs/s, ms by stage and one profiled run; then the CLI's
+    classes; then the CLI's
     single-image functions under ``--set model.train_mode=stage_1 --set
     model.train_VGG=False`` on a 600x450 page."""
     from dvd_tpu_torch.cli.run_sampling import (build_pipeline, dewarp_image,
@@ -3478,7 +3113,7 @@ def phase_alt(state):
     from dvd_tpu_torch.training.checkpoint import maybe_load_pipeline_weights
 
     label = state["label"]
-    state["alt"], state["alt_launches"] = {}, {}
+    state["alt_launches"] = {}
     for tag, flags in ALT_CONFIGS:
         cfg = _alt_cfg(flags)
         m, d = cfg.model, cfg.diffusion
@@ -3516,20 +3151,6 @@ def phase_alt(state):
             f"|flow| {flow.abs().mean().item():.4f}; unwarped image range "
             f"[{out.min().item():.3f}, {out.max().item():.3f}]")
         state["alt_launches"][tag] = counts
-        iters = 5
-        stage = _warm_stages(pipe, src, cuda_gen, iters)
-        total = sum(stage.values())
-        log(f"[alt {tag}] {batch / total:.2f} imgs/s at batch {batch} "
-            f"({total * 1e3:.1f} ms per batch, mean of {iters} warm runs; "
-            f"{label})")
-        for k, v in stage.items():
-            log(f"[alt {tag}]   {k}: {v * 1e3:.2f} ms per batch ({label})")
-        rows, busy, wall = _profile(
-            pipe, src, cuda_gen, label,
-            need=("attention_wgmma_kernel", "conv3x3_wgmma_kernel",
-                  "conv3x3_f32x6_kernel", "unwarp_kernel"))
-        state["alt"][tag] = dict(imgs_per_sec=batch / total, stage=stage,
-                                 busy_ms=busy, wall_ms=wall * 1e3)
         del pipe
 
     # the CLI's single-image path (its --image entry reads the file with
@@ -3542,7 +3163,6 @@ def phase_alt(state):
     page = (_page(1, 450, 600, torch.Generator().manual_seed(SEED + 6))[0]
             * 255).round().numpy()
     before = read_launches()
-    t0 = time.perf_counter()
     out_img, out_flow = dewarp_image(pipe, page, seed=SEED)
     torch.cuda.synchronize()
     after = read_launches()
@@ -3554,8 +3174,7 @@ def phase_alt(state):
         raise AssertionError(f"alt CLI: launches {before} -> {after}")
     log(f"[alt] cli (--set model.train_mode=stage_1 --set "
         f"model.train_VGG=False) dewarp_image 600x450 page: "
-        f"{out_img.shape} in {time.perf_counter() - t0:.3f} s; weight "
-        f"files loaded {loaded}")
+        f"{out_img.shape}; weight files loaded {loaded}")
 
 
 # the corruptions the card's machine can run (it has no cv2)
@@ -3595,7 +3214,6 @@ def phase_corrupt(state):
     corruptions.corrupt_item = recorded
     torch.cuda.synchronize()
     reset_launches()
-    t0 = time.perf_counter()
     try:
         stats = run_corruption_sweep(
             pipe, ds, cfg, names, sevs, seed=SEED,
@@ -3604,15 +3222,14 @@ def phase_corrupt(state):
     finally:
         corruptions.corrupt_item = item_fn
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
     counts, n_int8 = read_launches(), quant.launches
     check_conv_route("corrupt", torch.bfloat16)
     check_gather_route("corrupt")
     log(f"[corrupt] {len(names)} corruptions {names} x severities {sevs} over "
         f"{len(ds)} stand-in pages ({min(map(min, sizes))}-"
         f"{max(map(max, sizes))} px, canvas {ds.pad_to}^2), int8, batch "
-        f"{cfg.data.eval_device_batch}: {wall:.2f} s; launches {counts}, "
-        f"int8 products {n_int8} ({state['label']})")
+        f"{cfg.data.eval_device_batch}: launches {counts}, int8 products "
+        f"{n_int8}")
     if min(counts[k] for k in ("attention", "conv3x3", "gather_bilinear",
                                "unwarp")) <= 0 or n_int8 <= 0:
         raise AssertionError(f"a kernel of the sweep did not launch: {counts}")
@@ -3626,7 +3243,8 @@ def phase_corrupt(state):
             if rs != stats[(name, sev)] or rs["images"] != len(ds) \
                     or len(maps) != len(ds):
                 raise AssertionError(f"{out_dir}: {rs}, {len(maps)} maps")
-            log(f"[corrupt] {name} s{sev} run_stats.json {json.dumps(rs)}")
+            log(f"[corrupt] {name} s{sev}: run_stats.json with "
+                f"{rs['images']} images, {len(maps)} coordinate maps")
             for path in ds.paths:
                 item, got = seen[(name, sev, path)]
                 want_src = corruptions.corrupt(item["source_image"], name, sev)
@@ -3738,7 +3356,6 @@ def phase_likelihood32(state):
                                 noise=noise.to(dev))
             if dev == "cuda":
                 torch.cuda.synchronize()
-                ms = (time.perf_counter() - t0) * 1e3
                 counts = dict(read_launches(),
                               attention_routes=routes("attention"),
                               conv3x3_routes=routes("conv3x3"))
@@ -3749,8 +3366,7 @@ def phase_likelihood32(state):
             f"schedule: calc_bpd_loop in {time.perf_counter() - t0:.2f} s "
             f"(outconv bias shift {shift:+.3f})")
     del pipes
-    log(f"[likelihood32] card: {ms:.1f} ms for the conditioning and the "
-        f"{T}-step bound ({state['label']}); kernel launches {counts}")
+    log(f"[likelihood32] card: kernel launches {counts}")
     if counts["attention"] <= 0 or counts["conv3x3"] <= 0:
         raise AssertionError(f"K1 or K2 did not launch: {counts}")
     c, p = runs["cuda"], runs["cpu"]
@@ -3831,17 +3447,14 @@ def phase_dist1(state):
                 logger = _row_logger()
                 torch.cuda.synchronize()
                 reset_launches()
-                t0 = time.perf_counter()
                 st = train(cfg, data, max_steps=steps, device=device,
                            logger=logger, mesh=mesh)
                 torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
                 counts = read_launches()
                 runs[world] = (unsharded_state(st), logger.rows)
                 log(f"[dist1] {'NCCL world' if world else 'plain'} train(): "
                     f"{steps} steps of the shipped config (batch "
-                    f"{cfg.train.batch_size}) in {wall:.2f} s, pipeline "
-                    f"set-up included ({state['label']}); launches {counts}")
+                    f"{cfg.train.batch_size}); launches {counts}")
                 if min(counts[k] for k in TRAIN_KERNELS) <= 0:
                     raise AssertionError(f"a kernel did not launch: {counts}")
                 pipe = DewarpPipeline.create(
@@ -3999,16 +3612,11 @@ def _dist2_worker(rank: int, port: int, spec_path: str, out_path: str):
                 st, m = step(st, batch, None, **pins)
             torch.cuda.synchronize()
             counts = dict(read_launches(), attention_by_dh=attention_by_dh())
-            st.optimizer.step = opt_step
-            t0 = time.perf_counter()
-            step(st, batch, None, **pins)
-            torch.cuda.synchronize()
-            ms = (time.perf_counter() - t0) * 1e3
             lay = st.layout
             grads = {k: lay.unsharded(k, g).cpu()
                      for k, g in zip(lay.held, record["grads"])}
             results[name] = dict(loss=m["loss"].item(), grads=grads,
-                                 launches=counts, step_ms=ms,
+                                 launches=counts,
                                  sharded=len(lay.placements),
                                  crossed=k4["crossed"], max_d=k4["max_d"])
             del st, step, net
@@ -4089,7 +3697,6 @@ def phase_dist2(state):
     out_path = os.path.join(state["workdir"], "dist2_out.pt")
     torch.save(spec, spec_path)
     port = _free_port()
-    t0 = time.perf_counter()
     procs = [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), "--dist2-worker",
          str(r), str(port), spec_path, out_path]) for r in range(2)]
@@ -4103,9 +3710,8 @@ def phase_dist2(state):
     if rcs != [0, 0]:
         raise AssertionError(f"dist2 world exited {rcs}")
     res = torch.load(out_path, weights_only=False)
-    log(f"[dist2] the world (2 processes on cuda:0, backend "
-        f"{res['backend']}) ran in {time.perf_counter() - t0:.1f} s "
-        f"({state['label']})")
+    log(f"[dist2] the world: 2 processes on cuda:0, backend "
+        f"{res['backend']}")
     failed = []
     for name, data, model, fsdp in DIST2_STEPS:
         r = res[name]
@@ -4124,9 +3730,8 @@ def phase_dist2(state):
             + ", ".join(f"{k} at {x:.3f}" for x, k in ratios[:3])
             + f" of the bar; the loss warp's points vs one process's: max "
             f"|d| {r['max_d']:.3e}, {r['crossed']} in another cell (K4 "
-            f"took one process's there); a second step {r['step_ms']:.1f} "
-            f"ms on rank 0 (a reading: gloo on one card); rank 0's "
-            f"launches in the first {r['launches']}")
+            f"took one process's there); rank 0's launches "
+            f"{r['launches']}")
         if not rel <= TOL["train_loss_rel"] or ratios[0][0] > 1:
             failed.append(name)
         if min(r["launches"][k] for k in TRAIN_KERNELS) <= 0:

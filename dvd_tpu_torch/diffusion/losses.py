@@ -25,7 +25,6 @@ conditioning tensors NCHW, as the port's DiT takes them.
 
 from __future__ import annotations
 
-import contextlib
 from typing import Callable, Dict, Optional
 
 import torch
@@ -37,6 +36,7 @@ from dvd_tpu_torch.diffusion.schedule import DiffusionSchedule
 from dvd_tpu_torch.ops.grid_sample import warp_const_src
 from dvd_tpu_torch.ops.resize import resize_bilinear
 from dvd_tpu_torch.parallel import comm
+from dvd_tpu_torch.utils import trace
 from dvd_tpu_torch.utils.dtypes import at_least_f32
 from dvd_tpu_torch.utils.grids import base_grid
 
@@ -131,20 +131,19 @@ def time_variant_loss(
     noise: Optional[torch.Tensor] = None,
     rollout_noise: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
-    span: Optional[Callable] = None,
 ) -> Dict[str, torch.Tensor]:
     """training_losses_time_variant (iter=True, production).
 
     The rollout runs without gradient (the reference's runs under
     ``torch.no_grad``); the supervised call then gets the raw compact
     timesteps (no rescale, no remap: reference ``:978``) and seeds the
-    recurrent features where ``t == T - 1``.  ``span(name)``, when given,
-    is a context manager around the rollout (stage timing)."""
+    recurrent features where ``t == T - 1``.  The rollout is the span
+    ``dvd.train.rollout`` (``utils/trace.py``)."""
     x_start_pm, f_inter_pm, mask = _prepare(x_start, x_start_inter, mask)
     x_t = G.q_sample(sched, x_start_pm, t,
                      _noise(x_start_pm, noise, generator))
     s = x_start.shape[1]
-    with span("rollout") if span else contextlib.nullcontext():
+    with trace.span("dvd.train.rollout"):
         init_flow_r, init_feat_r = rollout_states_for_training(
             model_fn, sched, cond, init_flow, init_feat, t, latent_size=s,
             remap_timesteps=rollout_remap, noise=rollout_noise,

@@ -32,7 +32,6 @@ told apart by their keys, as in ``dvd_tpu``:
 
 from __future__ import annotations
 
-import contextlib
 import os
 import time
 import warnings
@@ -55,6 +54,7 @@ from dvd_tpu_torch.training.train_state import (TrainState, create_train_state,
                                                 make_train_step,
                                                 microbatch_chunks,
                                                 shard_train_state)
+from dvd_tpu_torch.utils import trace
 from dvd_tpu_torch.utils.logger import KVLogger, log_loss_quartiles
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
@@ -179,7 +179,6 @@ def fetch_metrics(metrics: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
 def train(cfg: DvDConfig, data_iter: Iterator[Dict],
           max_steps: Optional[int] = None, device="cuda",
           logger: Optional[KVLogger] = None,
-          spans: Optional[Callable] = None,
           mesh: Optional[Mesh] = None) -> TrainState:
     """Train the denoiser on ``data_iter``'s batches until it ends or
     ``max_steps`` steps are done; returns the final state (also saved to
@@ -187,9 +186,10 @@ def train(cfg: DvDConfig, data_iter: Iterator[Dict],
     the converted weight files found at ``cfg.paths`` are loaded over them
     (the DiT's too, before the train state is built from it), as in
     ``dvd_tpu``; a checkpoint in the workspace (or
-    ``train.resume_checkpoint``) wins over the loaded DiT.  ``spans``
-    times the step's stages (see ``make_train_step``) and the batch
-    preparation ("prep", the augmentation included).
+    ``train.resume_checkpoint``) wins over the loaded DiT.  Each step's
+    batch preparation, the augmentation included, is the span
+    ``dvd.train.prep`` (``utils/trace.py``; the step's own spans: see
+    ``make_train_step``).
 
     ``mesh`` (default ``make_mesh(parallel.data_axis,
     parallel.model_axis)``, which asserts that the layout covers the
@@ -221,8 +221,7 @@ def train(cfg: DvDConfig, data_iter: Iterator[Dict],
         state = shard_train_state(cfg, state, mesh, cfg.parallel.fsdp)
         logger.log(f"mesh {mesh.shape}, fsdp={cfg.parallel.fsdp}: "
                    f"{len(state.layout.placements)} parameters sharded")
-    train_step = make_train_step(cfg, pipe.sched, spans,
-                                 mesh if sharded else None)
+    train_step = make_train_step(cfg, pipe.sched, mesh if sharded else None)
     prep = make_batch_prep(cfg, pipe)
 
     step = state.step
@@ -233,7 +232,7 @@ def train(cfg: DvDConfig, data_iter: Iterator[Dict],
         raw = put_global_batch(raw, device)
         n = next(iter(raw.values())).shape[0]
         rows = batch_slice(mesh, n, microbatch_chunks(cfg, n))
-        with spans("prep") if spans else contextlib.nullcontext(), \
+        with trace.span("dvd.train.prep"), \
                 comm.batch_rows(rows, n * mesh.data):
             batch = prep(raw, step)
         gen = step_generator(cfg.train.seed, step, device)

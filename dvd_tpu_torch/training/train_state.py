@@ -57,7 +57,6 @@ pyramid hoist.  ``sr`` and ``trg_feat`` raise ``NotImplementedError``.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -74,6 +73,7 @@ from dvd_tpu_torch.parallel import comm
 from dvd_tpu_torch.parallel.mesh import (Mesh, ShardedParams, batch_slice,
                                          gather_batch, shard_params)
 from dvd_tpu_torch.training import resample
+from dvd_tpu_torch.utils import trace
 
 COND_KEYS = ("y512", "mask_cat", "mask_y512", "line_msk", "src_feat")
 
@@ -215,7 +215,6 @@ def shard_train_state(cfg: DvDConfig, state: TrainState, mesh: Mesh,
 
 
 def make_train_step(cfg: DvDConfig, sched: DiffusionSchedule,
-                    spans: Optional[Callable] = None,
                     mesh: Optional[Mesh] = None) -> Callable:
     """Returns ``train_step(state, batch, generator, *, t=None, noise=None,
     rollout_noise=None) -> (state, metrics)``; the state is updated in
@@ -238,12 +237,11 @@ def make_train_step(cfg: DvDConfig, sched: DiffusionSchedule,
     ``rollout_noise`` (B, S, S, 2) pin the first three.  Under ``mesh``
     (whose layout the state must have, ``shard_train_state``) ``batch`` is
     this rank's rows of the global batch and the pins are the global
-    batch's.  ``spans(name)``,
-    when given, is a context manager timing the stages ("rollout",
-    "loss_backward", "optimizer_ema")."""
+    batch's.  The step's stages are spans (``utils/trace.py``):
+    ``dvd.train.loss_backward`` (the time-variant loss's rollout inside
+    it as ``dvd.train.rollout``) and ``dvd.train.optimizer_ema``."""
     check_trainable(cfg)
     check_driver_mode(cfg.model.train_mode)
-    span = spans or (lambda name: contextlib.nullcontext())
     ema_rates = cfg.train.ema_rates
     s = cfg.model.image_size
     tv = bool(cfg.model.time_variant)
@@ -287,7 +285,7 @@ def make_train_step(cfg: DvDConfig, sched: DiffusionSchedule,
             return L.time_variant_loss(
                 *args, init_feat, *data,
                 rollout_remap=cfg.model.remap_rollout_timesteps, noise=noise,
-                rollout_noise=rollout_noise, generator=generator, span=span)
+                rollout_noise=rollout_noise, generator=generator)
         return L.composed_warp_loss(*args, init_feat if tv else None, *data,
                                     noise=noise, generator=generator)
 
@@ -395,10 +393,10 @@ def make_train_step(cfg: DvDConfig, sched: DiffusionSchedule,
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    generator: Optional[torch.Generator], **pins
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        with span("loss_backward"):
+        with trace.span("dvd.train.loss_backward"):
             grads, t, metrics = loss_and_grads(state, batch, generator,
                                                **pins)
-        with span("optimizer_ema"):
+        with trace.span("dvd.train.optimizer_ema"):
             metrics["grad_norm"] = state.optimizer.step(grads)
             held = state.held_params()
             with torch.no_grad():

@@ -36,19 +36,18 @@ when any of its parameters or buffers is replaced, moved or loaded
 ``load_state_dict`` copies in place and bumps the versions), or when a
 submodule is replaced.
 
-Each call of an enabled module is counted in ``counts[(net, mode)]`` and
-recorded as a ``dvd.cond.graph`` span (``utils/trace.py``; attributes
-``net`` and ``mode``), nested in ``dvd.cond.<net>``; a replay's span also
-lists the kernel launches its graph holds (attribute ``launches``, each
-as the kernel's wrapper noted it at the capture, :func:`launched`).  The
-kernels' launch counters (``conv3x3.launches``, ...) count launches made
-from Python: a capture counts each launch twice (the side stream's pass
-and the capture), a replay none.
+Each call of an enabled module is recorded as a ``dvd.cond.graph`` span
+(``utils/trace.py``; attributes ``net`` and ``mode``), nested in
+``dvd.cond.<net>``; a replay's span also lists the kernel launches its
+graph holds (attribute ``launches``, each as the kernel's wrapper noted
+it at the capture, :func:`launched`).  The kernels' launch counters
+(``conv3x3.launches``, ...) count launches made from Python: a capture
+counts each launch twice (the side stream's pass and the capture), a
+replay none.
 """
 
 from __future__ import annotations
 
-import collections
 import contextlib
 import itertools
 import operator
@@ -63,8 +62,6 @@ from dvd_tpu_torch.utils import trace
 MAX_KEYS = 4
 SPAN = "dvd.cond.graph"
 ATTR = "_cuda_graphs"
-
-counts: collections.Counter = collections.Counter()
 
 _local = threading.local()
 _ptr = torch.Tensor.data_ptr
@@ -181,7 +178,6 @@ class Graphs:
             self.wkey = wkey
 
     def _eager(self, fn: Callable, x):
-        counts[self.net, "eager"] += 1
         with trace.span(SPAN, net=self.net, mode="eager"):
             return fn(x)
 
@@ -192,7 +188,6 @@ class Graphs:
         key = input_key(x)
         g = self.graphs.get(key)
         if g is not None:
-            counts[self.net, "replay"] += 1
             with trace.span(SPAN, net=self.net, mode="replay",
                             launches=g.launches):
                 return g.replay(x)
@@ -201,7 +196,6 @@ class Graphs:
         if key not in self.warm:
             self.warm.add(key)
             return self._eager(fn, x)
-        counts[self.net, "capture"] += 1
         with trace.span(SPAN, net=self.net, mode="capture"):
             g = self.graphs[key] = self._capture(fn, x)
             self.warm.discard(key)
@@ -233,13 +227,14 @@ class Graphs:
 
 
 def enable(module: nn.Module, net: str) -> None:
-    """Replay ``module``'s forward from CUDA graphs, counted under
-    ``net``."""
+    """Replay ``module``'s forward from CUDA graphs, its calls' spans
+    under ``net``."""
     module.__dict__[ATTR] = Graphs(net)
 
 
 def disable(module: nn.Module) -> None:
-    """Drop ``module``'s graphs: its forward runs eagerly, uncounted."""
+    """Drop ``module``'s graphs: its forward runs eagerly, with no
+    span."""
     module.__dict__.pop(ATTR, None)
 
 

@@ -48,7 +48,14 @@ The program's spans (``dvd.<layer>[.<part>]``):
   batch's inputs onto the device), ``dvd.driver.drain`` (a batch's
   results back to the host, its writes queued), ``dvd.driver.write`` (one
   file, in a writer thread) and ``dvd.loader.batch`` (one batch made, in
-  the loader thread).
+  the loader thread);
+- training (``training/train_loop.py``, ``train_state.py``,
+  ``diffusion/losses.py``): per step ``dvd.train.prep`` (the batch's
+  preparation, the augmentation and the frozen conditioning included),
+  ``dvd.train.loss_backward`` (the loss and its gradients; in the
+  time-variant loss ``dvd.train.rollout`` inside it, the rollout without
+  gradient) and ``dvd.train.optimizer_ema`` (the optimizer's step and the
+  EMA update).
 """
 
 from __future__ import annotations

@@ -1,14 +1,15 @@
 """CUDA-graph replay of the frozen conditioning networks
 (``dvd_tpu_torch/utils/graphs.py``) on the CPU: a serving pipeline enables
 it on GeoTrSegInf, Seg's U2NetP and the line UNet, a training one does
-not; a CPU input or a call with autograd on takes the eager path,
-counted and spanned, with ``build_conditioning``'s outputs unchanged bit
+not; a CPU input or a call with autograd on takes the eager path, its
+``dvd.cond.graph`` span marked ``eager``, with ``build_conditioning``'s outputs unchanged bit
 for bit; a wrapper set on the ``seg.msk.forward`` instance sees every
 call; the keys a graph is kept under, and the weights key that drops a
 module's graphs after ``load_state_dict``, ``.to()`` or a replaced
 submodule; what a capture holds and the launches it notes.  The card's half (capture, replay) is
 ``tests/test_torch_graphs_cuda.py``."""
 
+import collections
 import copy
 
 import pytest
@@ -39,11 +40,17 @@ def pipe():
 
 @pytest.fixture(autouse=True)
 def clean():
-    trace.disable()
     trace.clear()
+    trace.enable()
     yield
     trace.disable()
     trace.clear()
+
+
+def _calls():
+    """(net, mode) of each graphed network's call spanned so far."""
+    return collections.Counter((r[5]["net"], r[5]["mode"])
+                               for r in trace.records() if r[0] == graphs.SPAN)
 
 
 def _nets(pipe):
@@ -91,20 +98,18 @@ def test_training_pipeline_enables_none():
     tp = DewarpPipeline.create(cfg, "cpu", train=True,
                                generator=torch.Generator().manual_seed(0))
     assert all(graphs.graphs_of(m) is None for m in _nets(tp).values())
-    before = dict(graphs.counts)
+    before = _calls()
     with torch.inference_mode():
         tp.seg.msk(_perception(tp))
-    assert dict(graphs.counts) == before
+    assert _calls() == before
 
 
 def test_cpu_input_takes_the_eager_path_bit_for_bit(pipe):
     src = _sources()
-    before = {n: graphs.counts[n, "eager"] for n in NETS}
+    before = _calls()
     got = [_conditioning(pipe, src) for _ in range(3)]
-    assert {n: graphs.counts[n, "eager"] - before[n] for n in NETS} == \
-        {n: 3 for n in NETS}
-    assert all(graphs.counts[n, m] == 0 for n in NETS
-               for m in ("capture", "replay"))
+    assert _calls() - before == {(n, "eager"): 3 for n in NETS}
+    assert not any(m in ("capture", "replay") for _, m in _calls())
     assert all(not graphs.graphs_of(m).graphs and not graphs.graphs_of(m).warm
                for m in _nets(pipe).values())
     saved = {n: graphs.graphs_of(m) for n, m in _nets(pipe).items()}
@@ -125,10 +130,10 @@ def test_cpu_input_takes_the_eager_path_bit_for_bit(pipe):
 def test_autograd_on_takes_the_eager_path(pipe, net):
     module = _nets(pipe)[net]
     x = _perception(pipe)
-    before = graphs.counts[net, "eager"]
+    before = _calls()
     with torch.enable_grad():
         got = module(x)
-    assert graphs.counts[net, "eager"] == before + 1
+    assert _calls() - before == {(net, "eager"): 1}
     with torch.no_grad():
         want = _forward_of(net, module)(x)
     if net == "geotr":          # (no GeoTr map, the soft mask upsampled)
@@ -138,7 +143,6 @@ def test_autograd_on_takes_the_eager_path(pipe, net):
 
 
 def test_eager_spans_nest_in_their_networks_spans(pipe):
-    trace.enable()
     _conditioning(pipe, _sources())
     recs = trace.records()
     spans = [(i, r) for i, r in enumerate(recs) if r[0] == graphs.SPAN]
@@ -285,12 +289,12 @@ def test_launches_are_noted_only_inside_a_capture():
 
 
 def test_inside_a_capture_an_enabled_network_runs_as_it_is(pipe):
-    before = dict(graphs.counts)
+    before = _calls()
     x = _perception(pipe)
     with graphs.holding(), torch.inference_mode():
         got = pipe.line(x)
         want = pipe.line._forward(x)
-    assert dict(graphs.counts) == before
+    assert _calls() == before
     assert _same(got, want)
 
 
@@ -298,7 +302,7 @@ def test_a_disabled_network_runs_uncounted(pipe):
     module = copy.deepcopy(pipe.seg.msk)
     graphs.disable(module)
     assert graphs.graphs_of(module) is None
-    before = dict(graphs.counts)
+    before = _calls()
     with torch.inference_mode():
         module(_perception(pipe))
-    assert dict(graphs.counts) == before
+    assert _calls() == before

@@ -32,6 +32,7 @@ from dvd_tpu_torch.training.train_loop import train
 from dvd_tpu_torch.training.train_state import (create_train_state,
                                                 make_optimizer,
                                                 make_train_step)
+from dvd_tpu_torch.utils import trace
 from test_torch_common import (S, SRC, TINY_MODEL, assert_trees_close,
                                mini_dit_port, mini_dit_variables,
                                no_flax_dropout, smooth_field, t, torch_named,
@@ -249,6 +250,35 @@ def test_resume_equals_uninterrupted_run_device_aug(tmp_path):
                   max_steps=2, device="cpu")
     assert not all(torch.equal(a, b) for a, b in zip(
         other.model.parameters(), want.model.parameters()))
+
+
+def test_train_stages_are_spans(tmp_path):
+    """Under ``trace.enable()`` one step of ``train()`` records its stages
+    as spans (``utils/trace.py``): the batch's preparation, the loss and
+    its gradients with the rollout inside, the optimizer and the EMA, in
+    that order; the step's state equals an untraced step's bit for bit."""
+    want = train(_train_cfg(tmp_path / "off"), _wire(), max_steps=1,
+                 device="cpu")
+    trace.clear()
+    trace.enable()
+    try:
+        got = train(_train_cfg(tmp_path / "on"), _wire(), max_steps=1,
+                    device="cpu")
+        recs = trace.records()
+    finally:
+        trace.disable()
+        trace.clear()
+    spans = {r[0]: (i, r) for i, r in enumerate(recs)
+             if r[0].startswith("dvd.train.")}
+    assert list(spans) == ["dvd.train.prep", "dvd.train.loss_backward",
+                           "dvd.train.rollout", "dvd.train.optimizer_ema"]
+    assert len([r for r in recs if r[0].startswith("dvd.train.")]) == 4
+    prep, loss, rollout, opt = (r for _, r in spans.values())
+    assert prep[4] is None and loss[4] is None and opt[4] is None
+    assert rollout[4] == spans["dvd.train.loss_backward"][0]
+    assert prep[2] <= loss[1] <= rollout[1] <= rollout[2] <= loss[2] \
+        <= opt[1] <= opt[2]
+    _assert_same_state(got, want)
 
 
 @pytest.mark.parametrize("on_device_aug", [False, True])
