@@ -10,9 +10,15 @@ with device batches:
 - uint8 crosses to the card in both directions: the 512^2 sources and the
   canvases go up as uint8 and become f32 on the card, the unwarped
   canvases come back as uint8 (round half to even, clip, cast);
+- the loader thread makes a batch's inputs into host tensors (on a card
+  in pinned host memory); on a card the copies neither block the host nor
+  idle the compute stream: the inputs go up on a stream of their own while
+  the previous batch computes, and the results come back on another into
+  pinned memory as soon as the batch's unwarp is done;
 - one batch stays in flight: batch i is dispatched before batch i-1's
-  results are pulled back, and PNGs and coordinate maps are written by a
-  thread pool under the reference's naming
+  results are handed to the writers, and PNGs and coordinate maps are
+  written by a thread pool, at most ``WRITE_BACKLOG`` batches behind,
+  under the reference's naming
   ``vis_hp/{dataset}/{name}/dewarped_pred/warped_*.png``
   (``visualization_utils.py:64-91``), so downstream metric tooling is
   drop-in compatible.
@@ -40,6 +46,7 @@ import os
 import queue
 import threading
 import time
+from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Optional
 
@@ -56,6 +63,10 @@ from dvd_tpu_torch.utils import trace
 
 # the fields of a line of ``spans.jsonl`` (a record of ``utils/trace.py``)
 SPAN_KEYS = ("i", "name", "t0_ns", "t1_ns", "thread", "parent", "attrs")
+# drained batches whose writes may still run: a drain first waits for the
+# writes of older ones, so writers slower than the loop hold at most this
+# many batches' results (on a card, their pinned blocks)
+WRITE_BACKLOG = 2
 
 
 def save_png(path: str, arr: np.ndarray) -> None:
@@ -95,6 +106,20 @@ def prefetched_batches(dataset, batch_size: int, depth: int = 2):
         if isinstance(item, BaseException):
             raise item
         yield item
+
+
+class _Staged:
+    """``dataset`` whose batches carry ``staged``, ``stage(batch)``, made
+    by the thread that iterates it: so ``prefetched_batches``' loader
+    thread stages batches, and ``prefetched_batches`` keeps its
+    signature."""
+
+    def __init__(self, dataset, stage):
+        self.dataset, self.stage = dataset, stage
+
+    def batches(self, batch_size: int):
+        for batch in self.dataset.batches(batch_size):
+            yield dict(batch, staged=self.stage(batch))
 
 
 @torch.inference_mode()
@@ -164,7 +189,9 @@ def run_benchmark(pipe: DewarpPipeline, dataset, out_dir: str, *,
     device), ``dvd.cond``, ``dvd.sample``, ``dvd.unwarp`` and
     ``dvd.driver.drain`` (the previous batch's results to the host and
     its writes queued, each write a ``dvd.driver.write`` span in a writer
-    thread).  ``mesh``: see
+    thread; on a card, where the pull into pinned memory began after the
+    batch's unwarp, its ``ready`` says whether that pull was done when
+    the drain began; the CPU's drain has no ``ready``).  ``mesh``: see
     :func:`serving_mesh`; ``batch_size`` is the global batch, which must
     divide over its data axis.  ``parallel.fsdp`` shards training state:
     serving holds whole weights, as ``dvd_tpu``'s driver does."""
@@ -190,17 +217,90 @@ def run_benchmark(pipe: DewarpPipeline, dataset, out_dir: str, *,
             cond, init_flow, init_feat = pipe.build_conditioning(src)
             return pipe.sampling_impl(cond, init_flow, init_feat, gen)
 
+    card = dev.type == "cuda"
+    if card:
+        compute = torch.cuda.current_stream(dev)
+        up_stream, pull_stream = torch.cuda.Stream(dev), torch.cuda.Stream(dev)
+
+    def stage(batch):
+        """This rank's rows of a batch's inputs as host tensors, made in
+        the loader thread (on the main thread this work held up the
+        launches): the 512^2 sources as uint8, the canvases, their pages'
+        sizes.  On a card they are copied into pinned memory (PyTorch's
+        caching host allocator hands a block out again only once the copy
+        that last read it is done)."""
+        src = np.asarray(local(batch["source_image"]))
+        ts = [torch.from_numpy(a) for a in (
+            np.clip(src * 255.0 + 0.5, 0, 255).astype(np.uint8),
+            local(batch["source_padded"]), local(batch["hw"]))]
+        return [t.pin_memory() for t in ts] if card else ts
+
+    def upload(ts):
+        """Host tensors onto the device.  On a card they are copied on the
+        upload stream, which the compute stream then waits for: neither the
+        host nor the batch in flight waits for the copy."""
+        if not card:
+            return [t.to(dev) for t in ts]
+        with torch.cuda.stream(up_stream):
+            ts = [t.to(dev, non_blocking=True) for t in ts]
+        compute.wait_stream(up_stream)
+        for t in ts:                # made on the upload stream, read here
+            t.record_stream(compute)
+        return ts
+
+    def pull(out, flow):
+        """On a card, send a batch's uint8 pages and f32 flows to the host
+        once the compute stream has made them: copied on the pull stream
+        into pinned memory while the next batch computes.  Returns the host
+        tensors and the event of their copy; None on the CPU, where
+        ``drain`` copies."""
+        if not card:
+            return None
+        flow = flow.float()
+        pull_stream.wait_stream(compute)
+        with torch.cuda.stream(pull_stream):
+            host = []
+            for t in (out, flow):
+                t.record_stream(pull_stream)
+                host.append(torch.empty(t.shape, dtype=t.dtype,
+                                        pin_memory=True)
+                            .copy_(t, non_blocking=True))
+            done = torch.cuda.Event()
+            done.record()
+        return host[0], host[1], done
+
     writer = ThreadPoolExecutor(max_workers=4)
-    pending = []
+    queued = deque()                # each drained batch's write futures
     n_done = 0
 
+    def wait_writes(keep):
+        """Wait for the writes of all but the newest ``keep`` drained
+        batches (a writer's error surfaces here)."""
+        while len(queued) > keep:
+            for fut in queued.popleft():
+                fut.result()
+
     def drain(inflight):
-        """Pull one batch's results to the host and queue the writes."""
+        """Hand one batch's results to the writers, once those of all but
+        the newest ``WRITE_BACKLOG - 1`` drained batches are written: on a
+        card the pinned copies of its pull, once done (a writer's numpy
+        view keeps its block alive), with ``ready`` on the span: whether
+        the pull was done when the drain began; on the CPU a copy made
+        here."""
         nonlocal n_done
-        out_dev, flow_dev, batch, bi = inflight
-        with trace.span("dvd.driver.drain", batch=bi):
-            out = out_dev.cpu().numpy()
-            flow_np = flow_dev.float().cpu().numpy()
+        out_dev, flow_dev, pulled, batch, bi = inflight
+        attrs = {} if pulled is None else {"ready": pulled[2].query()}
+        with trace.span("dvd.driver.drain", batch=bi, **attrs):
+            wait_writes(WRITE_BACKLOG - 1)
+            futs = []
+            queued.append(futs)
+            if pulled is None:
+                out = out_dev.cpu().numpy()
+                flow_np = flow_dev.float().cpu().numpy()
+            else:
+                out_host, flow_host, done = pulled
+                done.synchronize()
+                out, flow_np = out_host.numpy(), flow_host.numpy()
             for j, g in enumerate(rows_np.tolist()):
                 if g >= batch["count"]:          # the last batch's padding
                     continue
@@ -210,12 +310,12 @@ def run_benchmark(pipe: DewarpPipeline, dataset, out_dir: str, *,
                 name = os.path.basename(batch["paths"][g])
                 h, w = batch["hw"][g]
                 if save_outputs:
-                    pending.append(writer.submit(
+                    futs.append(writer.submit(
                         _write, save_png,
                         os.path.join(pred_dir, f"warped_{name}"),
                         out[j, :h, :w]))
                 if save_coord_maps:
-                    pending.append(writer.submit(
+                    futs.append(writer.submit(
                         _write, np.save,
                         os.path.join(pred_dir, f"coord_{name}.npy"),
                         flow_np[j]))
@@ -224,16 +324,14 @@ def run_benchmark(pipe: DewarpPipeline, dataset, out_dir: str, *,
     compile_time, t_start = 0.0, None
     inflight, last_inputs = None, None
     try:
-        for bi, batch in enumerate(prefetched_batches(dataset, batch_size)):
-            src_np = np.asarray(local(batch["source_image"]))
-            padded_np = local(batch["source_padded"])
-            with trace.span("dvd.driver.h2d", batch=bi,
-                            bytes=src_np.size + padded_np.nbytes):
-                src_u8 = torch.from_numpy(np.clip(
-                    src_np * 255.0 + 0.5, 0, 255).astype(np.uint8)).to(dev)
+        for bi, batch in enumerate(prefetched_batches(
+                _Staged(dataset, stage), batch_size)):
+            # this rank's uint8 sources and canvases
+            nbytes = (np.size(batch["source_image"]) + np.asarray(
+                batch["source_padded"]).nbytes) * len(rows_np) // batch_size
+            with trace.span("dvd.driver.h2d", batch=bi, bytes=nbytes):
+                src_u8, padded, hw = upload(batch["staged"])
                 src = src_u8.to(torch.float32) / 255.0
-                padded = torch.from_numpy(padded_np).to(dev)
-                hw = torch.from_numpy(local(batch["hw"])).to(dev)
                 gen = batch_generator(dev, seed, bi)
             t0 = time.perf_counter()
             flow = dewarp(src, gen)
@@ -253,14 +351,14 @@ def run_benchmark(pipe: DewarpPipeline, dataset, out_dir: str, *,
                     # the profiler's start takes seconds: before the clock
                     prof.__enter__()
                 t_start = time.perf_counter()
+            pulled = pull(out, flow)
             if inflight is not None:
                 drain(inflight)
-            inflight = (out, flow, batch, bi)
+            inflight = (out, flow, pulled, batch, bi)
             last_inputs = (src, padded, hw, bi)
         if inflight is not None:
             drain(inflight)
-        for fut in pending:         # surface writer errors before reporting
-            fut.result()
+        wait_writes(0)              # surface writer errors before reporting
     finally:
         writer.shutdown()
         if prof is not None:

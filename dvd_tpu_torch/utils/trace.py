@@ -46,7 +46,9 @@ The program's spans (``dvd.<layer>[.<part>]``):
 - the dataset driver (``evaluation/driver.py``): ``dvd.driver.wait``
   (the next batch from the loader thread), ``dvd.driver.h2d`` (the
   batch's inputs onto the device), ``dvd.driver.drain`` (a batch's
-  results back to the host, its writes queued), ``dvd.driver.write`` (one
+  results back to the host, its writes queued; on a card ``ready``:
+  whether its pinned pull was done when the drain began),
+  ``dvd.driver.write`` (one
   file, in a writer thread) and ``dvd.loader.batch`` (one batch made, in
   the loader thread);
 - training (``training/train_loop.py``, ``train_state.py``,

@@ -1,8 +1,9 @@
 """The port's spans (``dvd_tpu_torch/utils/trace.py``) on the CPU: off
 unless a profiler records or tracing is enabled, the serving path's and the
 dataset driver's spans nested and placed on their threads as documented,
-their stamps on the clock of the profiler's host events, and
-``run_benchmark --profile``'s window and span export."""
+their stamps on the clock of the profiler's host events,
+``run_benchmark --profile``'s window and span export, and the bound on
+the driver's writer backlog."""
 
 import json
 import threading
@@ -19,6 +20,7 @@ from dvd_tpu_torch.evaluation import driver
 from dvd_tpu_torch.evaluation.pipeline import DewarpPipeline, unwarp_fixed
 from dvd_tpu_torch.utils import trace
 from test_torch_common import SRC, TINY_MODEL
+from writer_pool import CountingPool
 
 BATCH = 2
 CANVAS = 160
@@ -198,7 +200,9 @@ def test_serving_spans_nest_under_the_profiler(pipe):
 def test_run_benchmark_spans_on_their_threads(pipe, tmp_path):
     """Two batches under ``enable()``: the driver's spans on the calling
     thread, covering the loop's body, the loader's and the writers' on
-    threads of their own."""
+    threads of their own.  On the CPU the drain copies the results itself
+    (no pinned pull runs ahead of it), so its span has no ``ready``
+    attribute: only a card's drain says whether its pull was done."""
     trace.enable()
     stats = driver.run_benchmark(pipe, Pages(2 * BATCH), str(tmp_path),
                                  batch_size=BATCH, mesh=None)
@@ -212,7 +216,8 @@ def test_run_benchmark_spans_on_their_threads(pipe, tmp_path):
               "dvd.cond", "dvd.sample", "dvd.unwarp"):
         assert threads[n] == {main}, n
     assert [r[5]["batch"] for _, r in names["dvd.driver.h2d"]] == [0, 1]
-    assert [r[5]["batch"] for _, r in names["dvd.driver.drain"]] == [0, 1]
+    assert [r[5] for _, r in names["dvd.driver.drain"]] == \
+        [{"batch": 0}, {"batch": 1}]
     assert names["dvd.driver.h2d"][0][1][5]["bytes"] == \
         BATCH * (SRC * SRC + CANVAS * CANVAS) * 3
     # the loader made two batches and found the end in a third span
@@ -230,6 +235,29 @@ def test_run_benchmark_spans_on_their_threads(pipe, tmp_path):
     after = [s[2] for s in loop if s[0] >= h2d_1[0]][:5]
     assert after == ["dvd.driver.h2d", "dvd.cond", "dvd.sample",
                      "dvd.unwarp", "dvd.driver.drain"]
+
+
+def test_run_benchmark_bounds_the_writers_backlog(pipe, tmp_path,
+                                                   monkeypatch):
+    """Writers far slower than the loop (1 s a page): a drain waits for
+    the writes of all but the newest ``WRITE_BACKLOG - 1`` drained
+    batches before it queues its own, so at most ``WRITE_BACKLOG``
+    batches' results (on a card, their pinned blocks) are held by
+    writes: fewer than ``WRITE_BACKLOG * BATCH`` writes are pending when
+    one is queued; every page is still written."""
+    written = []
+
+    def slow(path, arr):
+        time.sleep(1.0)
+        written.append(path)
+
+    monkeypatch.setattr(CountingPool, "most", 0)
+    monkeypatch.setattr(driver, "ThreadPoolExecutor", CountingPool)
+    monkeypatch.setattr(driver, "save_png", slow)
+    stats = driver.run_benchmark(pipe, Pages(6 * BATCH), str(tmp_path),
+                                 batch_size=BATCH, mesh=None)
+    assert stats["images"] == len(written) == 6 * BATCH
+    assert 0 < CountingPool.most < driver.WRITE_BACKLOG * BATCH
 
 
 class SlowStart(profile):
