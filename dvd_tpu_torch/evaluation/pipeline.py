@@ -50,14 +50,21 @@ loop carries no recurrent state for them (``dvd_tpu`` samples them with
 ``time_variant=False``).  ``model.quantize`` reaches the DiT alone, as in
 ``dvd_tpu``.
 
+A DiT with routed experts (``dit_variant`` ``DiT-MoE-*``,
+``models/moe.py``) serves through the same entry points.  It is built
+on the pipeline's device (4.7 B parameters at DiT-MoE-XL/2: the CPU's
+init of them would dominate the set-up) and refuses int8 and training.
+
 Refused: ``sr`` and ``trg_feat`` (``NotImplementedError``, as
 ``dvd_tpu``: no entry point makes their conditioning), an alternative
-denoiser with ``train_VGG=True`` (``ValueError``), and
-``serve_cond_chunk`` (not ported).
+denoiser with ``train_VGG=True`` (``ValueError``), ``serve_cond_chunk``
+(not ported) and a DiT with routed experts under int8 or in training
+(``NotImplementedError``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Dict, Optional, Tuple
 
@@ -66,7 +73,8 @@ import torch
 from dvd_tpu_torch.config import DvDConfig
 from dvd_tpu_torch.diffusion.sampler import ddim_sample_loop
 from dvd_tpu_torch.diffusion.schedule import DiffusionSchedule, make_schedule
-from dvd_tpu_torch.models.dit import DiT, conditioning_pyramid_features
+from dvd_tpu_torch.models.dit import (DiT, conditioning_pyramid_features,
+                                      is_moe_variant)
 from dvd_tpu_torch.models.geotr import GeoTrSegInf
 from dvd_tpu_torch.models.layers import seeded_init_
 from dvd_tpu_torch.models.registry import (check_driver_mode, create_model,
@@ -180,8 +188,14 @@ class DewarpPipeline:
         m = cfg.model
         quant = m.quantize == "int8"
         device = torch.device(device)
+        moe = is_dit_mode(m.train_mode) and is_moe_variant(m.dit_variant)
+        if moe and train:
+            raise NotImplementedError(
+                f"training {m.dit_variant!r}: its routed experts' balance "
+                "loss is not ported")
         if dit is None:
-            dit = create_model(cfg)
+            with torch.device(device) if moe else contextlib.nullcontext():
+                dit = create_model(cfg)
         if isinstance(dit, DiT) and dit.quant != quant:
             raise ValueError(f"model.quantize={m.quantize!r} with a DiT "
                              f"built with quant={dit.quant}")

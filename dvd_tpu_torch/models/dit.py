@@ -26,10 +26,16 @@ sampling-time timestep remap (t > 600 -> 2, t > 300 -> 1).
 ``chain_blocks=True`` runs every block, each reading the mean of the
 previous block's streams ('para'), as ``dvd_tpu``'s chained DiT does.
 
+Routed experts (``DiT-MoE-*`` variants, ``moe``): every block's MLP is
+DiT-MoE's sparse MoE layer (``models/moe.py``), fed the tokens of all the
+block's streams in one call.  Served only: int8, training and tensor
+parallelism refuse it.
+
 Spans (``utils/trace.py``): ``dvd.dit.blocks`` around the blocks that run
 (attributes ``blocks``, ``streams``, ``tokens``) and, in 'para',
 ``dvd.dit.decoder`` around the SATRN decoder and ``final_layer2``
-(``width``, the fused streams' width).
+(``width``, the fused streams' width); a MoE block's ``dvd.dit.moe``
+spans (``models/moe.py``).
 
 Layout: flows (N, S, S, 2) channel-last (the sampler's and grid_sample's
 grid layout); images and feature maps NCHW; tokens (N, T, D).
@@ -57,6 +63,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from dvd_tpu_torch.models import satrn
+from dvd_tpu_torch.models.moe import MoE, MoESpec
 from dvd_tpu_torch.models.layers import (CrossAttention, Mlp, PatchEmbed,
                                          SelfAttention, TimestepEmbedder,
                                          compute_dtype, conv3x3_folded,
@@ -123,11 +130,17 @@ class DiTBlock(nn.Module):
     each conditioning stream in parallel, each branch then through the
     shared self-attention + MLP; 'seq': cross-attention to the seg-mask,
     image and text-line streams in turn, then the backbone; 'one': to the
-    image stream alone."""
+    image stream alone.
+
+    With ``moe`` the backbone's MLP is DiT-MoE's routed-expert layer
+    (``models/moe.py``, module ``moe``): the streams' self-attention runs
+    branch by branch as in the dense block, then one call of the layer
+    routes every stream's tokens together, so that each expert's GEMM
+    sees the whole load."""
 
     def __init__(self, hidden_size: int, num_heads: int,
                  mlp_ratio: float = 4.0, quant: bool = False,
-                 mode: str = "para"):
+                 mode: str = "para", moe: Optional[MoESpec] = None):
         super().__init__()
         if mode not in MODES:
             raise ValueError(f"separate_cross_attn={mode!r}, not in {MODES}")
@@ -138,8 +151,11 @@ class DiTBlock(nn.Module):
             self.cross_obs_attn = CrossAttention(hidden_size, num_heads, quant)
             self.cross_attn_act = CrossAttention(hidden_size, num_heads, quant)
         self.attn = SelfAttention(hidden_size, num_heads, quant)
-        self.mlp = Mlp(hidden_size, int(hidden_size * mlp_ratio), hidden_size,
-                       quant)
+        if moe is None:
+            self.mlp = Mlp(hidden_size, int(hidden_size * mlp_ratio),
+                           hidden_size, quant)
+        else:
+            self.moe = MoE(hidden_size, moe)
 
     def forward(self, x, t_emb, cond, msk6=None, msk_line=None, r=None):
         """The block's output streams: one per conditioning stream given
@@ -148,23 +164,41 @@ class DiTBlock(nn.Module):
         shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = \
             ada.chunk(6, dim=-1)
 
-        def backbone(xi):
-            xi = xi + gate_msa[:, None] * self.attn(
+        def attend(xi):
+            return xi + gate_msa[:, None] * self.attn(
                 modulate(layer_norm(xi), shift_msa, scale_msa))
+
+        def backbone(xi):
+            xi = attend(xi)
             return xi + gate_mlp[:, None] * self.mlp(
                 modulate(layer_norm(xi), shift_mlp, scale_mlp))
 
+        def routed(xs):
+            """The MoE half of every stream, their tokens in one call."""
+            h = torch.cat([modulate(layer_norm(xi), shift_mlp, scale_mlp)
+                           for xi in xs])
+            y = self.moe(h.reshape(-1, h.shape[-1])).view(h.shape)
+            return tuple(xi + gate_mlp[:, None] * yi
+                         for xi, yi in zip(xs, y.chunk(len(xs))))
+
         if self.mode == "para":
             xq = layer_norm(x)
-            return tuple(backbone(x + self.cross_attn(xq, s, s))
-                         for s in (cond, msk6, msk_line, r) if s is not None)
+            branches = (x + self.cross_attn(xq, s, s)
+                        for s in (cond, msk6, msk_line, r) if s is not None)
+        else:
+            branches = (self._cross(x, cond, msk6, msk_line),)
+        if hasattr(self, "moe"):
+            return routed([attend(xi) for xi in branches])
+        # dense: each stream through the whole backbone in turn
+        return tuple(backbone(xi) for xi in branches)
+
+    def _cross(self, x, cond, msk6, msk_line):
+        """'seq' and 'one''s cross-attention, in turn."""
         if self.mode == "seq":
             x = x + self.cross_obs_attn(layer_norm(x), msk6, msk6)
             x = x + self.cross_attn(layer_norm(x), cond, cond)
-            x = x + self.cross_attn_act(layer_norm(x), msk_line, msk_line)
-        else:
-            x = x + self.cross_attn(layer_norm(x), cond, cond)
-        return (backbone(x),)
+            return x + self.cross_attn_act(layer_norm(x), msk_line, msk_line)
+        return x + self.cross_attn(layer_norm(x), cond, cond)
 
 
 class FinalLayer(nn.Module):
@@ -214,8 +248,13 @@ class DiT(nn.Module):
                  time_freq_size: int = 256, tv: bool = True,
                  chain_blocks: bool = False, with_mask: bool = True,
                  with_line: bool = True, dropout: float = 0.1,
-                 quant: bool = False, separate_cross_attn: str = "para"):
+                 quant: bool = False, separate_cross_attn: str = "para",
+                 moe: Optional[MoESpec] = None):
         super().__init__()
+        if moe is not None and quant:
+            raise NotImplementedError(
+                "int8 (model.quantize='int8') of a DiT with routed experts "
+                "is not ported")
         if separate_cross_attn == "seq" and not (with_mask and with_line):
             raise ValueError("separate_cross_attn='seq' cross-attends to the "
                              "seg-mask and text-line streams: needs both")
@@ -223,6 +262,7 @@ class DiT(nn.Module):
         self.in_channels, self.hidden_size = in_channels, hidden_size
         self.depth, self.tv, self.chain_blocks = depth, tv, chain_blocks
         self.quant, self.mode = quant, separate_cross_attn
+        self.moe_spec = moe
         grid = input_size // patch_size
         self.register_buffer("pos", torch.from_numpy(
             get_2d_sincos_pos_embed(hidden_size, grid))[None], persistent=False)
@@ -240,7 +280,7 @@ class DiT(nn.Module):
         for i in range(depth):
             setattr(self, f"blocks_{i}",
                     DiTBlock(hidden_size, num_heads, mlp_ratio, quant,
-                             separate_cross_attn))
+                             separate_cross_attn, moe))
         if separate_cross_attn == "para":
             k = 1 + int(with_mask) + int(with_line) + int(tv)
             self.decoder = satrn.Decoder(
@@ -401,6 +441,18 @@ DIT_CONFIGS = {
 }
 DIT_CONFIGS["DiT-mini"] = dict(depth=2, hidden_size=48, patch_size=2,
                                num_heads=3)   # CPU tests / smoke runs
+# DiT-MoE (arXiv:2407.11633, github.com/feizc/DiT-MoE models.py): DiT-XL/2's
+# blocks with 8 routed SwiGLU experts of 4 x 1152, 2 a token, and a shared
+# one of 2 x 1152; the mini size for the CPU tests
+DIT_CONFIGS["DiT-MoE-XL/2-8E2A"] = dict(DIT_CONFIGS["DiT-XL/2"],
+                                        moe=MoESpec(8, 2, 4.0, 2.0))
+DIT_CONFIGS["DiT-MoE-mini"] = dict(DIT_CONFIGS["DiT-mini"],
+                                   moe=MoESpec(8, 2, 4.0, 2.0))
+
+
+def is_moe_variant(variant: str) -> bool:
+    """Whether ``variant``'s blocks hold routed experts."""
+    return DIT_CONFIGS.get(variant, {}).get("moe") is not None
 
 
 def make_dit(variant: str = "DiT-S/2", **kwargs) -> DiT:

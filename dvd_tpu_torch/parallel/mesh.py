@@ -246,6 +246,10 @@ def shard_params(module: nn.Module, mesh: Mesh, fsdp: bool = False
     """
     from dvd_tpu_torch.models.layers import BatchNorm
 
+    if getattr(module, "moe_spec", None) is not None:
+        raise NotImplementedError(
+            "a DiT with routed experts (models/moe.py) sharded by "
+            "parallel.model_axis > 1 or parallel.fsdp is not ported")
     if getattr(module, "quant", False) and mesh.model > 1:
         raise NotImplementedError("int8 (model.quantize='int8') under "
                                   "tensor parallelism (parallel.model_axis"

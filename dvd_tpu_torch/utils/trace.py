@@ -22,6 +22,11 @@ A record is ``(name, t0_ns, t1_ns, thread, parent, attrs)``:
 The buffer keeps at most ``CAPACITY`` records; a span that finds it full
 is not recorded and is counted in :func:`dropped`.
 
+Counters (:func:`count`) keep a tensor of counts on the device where the
+program computed them: while tracing is active each call adds its counts
+into one buffer per name, an addition on the device with no copy to the
+host; :func:`counts` hands the buffers out, to be read after the stretch.
+
 The spans are not ``record_function`` ranges: on a card the profiler
 mirrors each such range that launches device work onto the device's
 timeline, where it would read as device activity.
@@ -40,7 +45,15 @@ The program's spans (``dvd.<layer>[.<part>]``):
   each step the DiT's ``dvd.dit.blocks`` (the blocks that run; attributes
   ``blocks``, ``streams``, ``tokens``) and, in its 'para' mode,
   ``dvd.dit.decoder`` (the SATRN decoder and the final layer; ``width``)
-  (``models/dit.py``);
+  (``models/dit.py``); in a DiT with routed experts (``models/moe.py``)
+  one ``dvd.dit.moe`` per block inside ``dvd.dit.blocks`` (attributes
+  ``tokens``, ``experts``, ``top_k``, ``inner``: the tokens routed, the
+  experts, the experts a token, an expert's SwiGLU width; and ``dim``,
+  ``shared_inner``, ``itemsize``), and inside it ``dvd.dit.moe.route``
+  (router, top-k, the permutation into expert order),
+  ``dvd.dit.moe.experts`` (the routed experts' grouped GEMMs and SwiGLU),
+  ``dvd.dit.moe.shared`` (the shared expert) and ``dvd.dit.moe.combine``
+  (the weighted sum back in token order);
 - ``dvd.unwarp`` (``ops/kernels/unwarp.py``: ``unwarp_fixed``,
   ``unwarp_native``, the dataset driver's ``unwarp_u8``);
 - the dataset driver (``evaluation/driver.py``): ``dvd.driver.wait``
@@ -58,6 +71,10 @@ The program's spans (``dvd.<layer>[.<part>]``):
   time-variant loss ``dvd.train.rollout`` inside it, the rollout without
   gradient) and ``dvd.train.optimizer_ema`` (the optimizer's step and the
   EMA update).
+
+The program's counters: ``dvd.dit.moe.expert_tokens`` ((experts,) int64:
+the tokens routed to each expert, summed over the blocks and calls of a
+DiT with routed experts).
 """
 
 from __future__ import annotations
@@ -65,8 +82,9 @@ from __future__ import annotations
 import contextlib
 import threading
 import time
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
+import torch
 import torch.autograd.profiler as _profiler
 
 CAPACITY = 1 << 18
@@ -82,17 +100,37 @@ class Tracer:
         self.capacity = capacity
         self.on = False
         self.buf: List[Record] = []
+        self.counts: Dict[str, torch.Tensor] = {}
         self.dropped = 0
         self.gen = 0        # bumped by clear(): open spans lose their slot
         self.lock = threading.Lock()
         self.local = threading.local()
 
+    def active(self) -> bool:
+        """Whether spans and counters record now."""
+        return self.on or _profiler._is_profiler_enabled
+
     def span(self, name: str, **attrs):
         """A span named ``name`` with ``attrs`` while tracing is active,
         else the shared no-op context."""
-        if not (self.on or _profiler._is_profiler_enabled):
+        if not self.active():
             return _NULL
         return _Span(self, name, attrs)
+
+    def count(self, name: str, values: torch.Tensor) -> None:
+        """While tracing is active, add ``values`` into the counter
+        ``name`` (a buffer of its shape on its device, made at the first
+        call); else nothing."""
+        if not self.active():
+            return
+        buf = self.counts.get(name)
+        if buf is None:
+            # a normal tensor, so that it can be added into in and out of
+            # inference mode
+            with torch.inference_mode(False):
+                buf = self.counts[name] = torch.zeros(
+                    values.shape, dtype=torch.int64, device=values.device)
+        buf.add_(values)
 
     def records(self) -> List[Record]:
         """A copy of the buffer: every thread's records, in the order the
@@ -101,9 +139,10 @@ class Tracer:
             return list(self.buf)
 
     def clear(self) -> None:
-        """Empty the buffer and the dropped count."""
+        """Empty the buffer, the dropped count and the counters."""
         with self.lock:
             self.buf = []
+            self.counts = {}
             self.dropped = 0
             self.gen += 1
 
@@ -147,8 +186,15 @@ class _Span:
 
 TRACER = Tracer()
 span = TRACER.span
+active = TRACER.active
+count = TRACER.count
 records = TRACER.records
 clear = TRACER.clear
+
+
+def counts() -> Dict[str, torch.Tensor]:
+    """The counters by name (the device buffers themselves, not copies)."""
+    return dict(TRACER.counts)
 
 
 def enable() -> None:
