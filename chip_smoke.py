@@ -64,6 +64,14 @@ exits non-zero -- nothing is caught):
             ``torch._int_mm``, a bf16 ``torch.matmul`` of the same shape,
             the quantize pass, the rescale and the whole ``int8_dense``
             timed beside their bounds (int8 1979 TOP/s, 3.35 TB/s).
+2c. adaln   the DiT's fused adaLN passes (``ops/kernels/adaln.py``:
+            ``ln_modulate``, ``gate_residual``) in bf16 at the DiT cells'
+            (8, 1024, 1152) and (8, 1024, 384) and the 'para' final
+            layer's (8, 1024, 4608): one launch each, within one bf16
+            unit of max|ref| of float32 math, then timed from Python and
+            from a CUDA graph, each call on the next of sets of inputs
+            and outputs that outsize the L2 five times, beside the plain
+            twin (today's eager chain) and the bound by bytes.
 3. slice32  the serving slice at full DiT-S/2 width and 512^2, batch 1, in
             f32: once on the card through the kernels (launch counts must
             all be > 0) and once on the CPU through the twins, with the
@@ -362,7 +370,7 @@ KERNELS = {
 }
 # the kernels of the training path (K5 is the probe's alone)
 TRAIN_KERNELS = ("attention", "conv3x3", "gather_bilinear",
-                 "gather_bilinear_grad")
+                 "gather_bilinear_grad", "ln_modulate", "gate_residual")
 
 
 def log(msg: str) -> None:
@@ -1247,6 +1255,86 @@ def phase_kernels(state):
     state["kernel_times"] = times
 
 
+# ---------------------------------------------------------------- phase 2c
+ADALN_CASES = ((8, 1024, 1152), (8, 1024, 384), (8, 1024, 4608))
+# the H100's L2; the timed calls rotate over inputs and outputs of at least
+# five times this, so that each call reads and writes device memory
+L2_BYTES = 50 * 2 ** 20
+
+
+def phase_adaln(state):
+    import torch.nn.functional as F
+
+    from dvd_tpu_torch.ops.kernels import adaln
+
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(22)
+    log(f"[adaln] bf16, CUDA events, mean of 20 launches, from Python and "
+        f"from a CUDA graph ({state['label']}); each call on the next of k "
+        f"sets of inputs and outputs, >= 5x the 50 MB L2 in all; bound = "
+        f"bytes / 3.35 TB/s; the plain twin is today's eager chain:")
+    for shape in ADALN_CASES:
+        n, _, d = shape
+        x_bytes = math.prod(shape) * 2
+        k = max(2, math.ceil(5 * L2_BYTES / (2 * x_bytes)))
+        xs = [(torch.randn(shape, generator=gen, device=dev) * 2 + 0.5)
+              .to(bf16) for _ in range(k)]
+        ys = [torch.randn(shape, generator=gen, device=dev).to(bf16)
+              for _ in range(k)]
+        shift, scale, gate = (torch.randn(n, 6 * d, generator=gen, device=dev)
+                              * 0.5).to(bf16).chunk(6, dim=-1)[:3]
+        x, y = xs[0], ys[0]
+        norm = F.layer_norm(x.float(), (d,), eps=adaln.EPS)
+        cond = n * d * 2
+        cases = {
+            "ln_modulate": (
+                lambda i: adaln.ln_modulate(xs[i], shift, scale),
+                lambda i: adaln.ln_modulate_ref(xs[i], shift, scale),
+                norm * (1 + scale.float()[:, None]) + shift.float()[:, None],
+                2 * x_bytes + 2 * cond),
+            "gate_residual": (
+                lambda i: adaln.gate_residual(xs[i], gate, ys[i]),
+                lambda i: adaln.gate_residual_ref(xs[i], gate, ys[i]),
+                x.float() + gate.float()[:, None] * y.float(),
+                3 * x_bytes + cond)}
+        for name, (fn, plain, ref, nbytes) in cases.items():
+            entry = getattr(adaln, name)
+            before = entry.launches
+            got = fn(0)
+            torch.cuda.synchronize()
+            if entry.launches != before + 1:
+                raise AssertionError(f"{name}: {entry.launches - before} "
+                                     "launches, not 1")
+            compare(f"{name} {shape}", got, ref, 2.0 ** -8, rel=True)
+            del got
+            r = dict(ms=_rotated_ms(fn, k, cuda_time_ms),
+                     graph_ms=_rotated_ms(fn, k, cuda_graph_ms),
+                     plain_ms=_rotated_ms(plain, k, cuda_time_ms),
+                     plain_graph_ms=_rotated_ms(plain, k, cuda_graph_ms),
+                     bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
+            log(f"  {name} {shape} over {k} sets: kernel {r['ms']:.4f} ms, "
+                f"graph {r['graph_ms']:.4f} ms ({r['graph_ms'] / r['bound_ms']:.2f}x "
+                f"its bound {r['bound_ms']:.4f} ms); plain twin "
+                f"{r['plain_ms']:.4f} ms, graph {r['plain_graph_ms']:.4f} ms "
+                f"({r['plain_graph_ms'] / r['graph_ms']:.2f}x the kernel)")
+        del xs, ys
+
+
+def _rotated_ms(call, k: int, timer) -> float:
+    """``timer``'s ms for ``call(i)`` on input set i = 0, 1, ..., k - 1, 0,
+    ...; each result is held until the call k later replaces it, so the
+    outputs rotate over k blocks too."""
+    ring, turn = [None] * k, iter(range(10 ** 9))
+
+    def fn():
+        i = next(turn) % k
+        ring[i] = call(i)
+
+    ms = timer(fn)
+    ring.clear()
+    return ms
+
+
 # ---------------------------------------------------------------- phases 3-4
 def _page(b: int, h: int, w: int, gen: torch.Generator) -> torch.Tensor:
     """Synthetic document photos (B, H, W, 3) in [0, 1]: a light page with
@@ -1263,15 +1351,19 @@ def _page(b: int, h: int, w: int, gen: torch.Generator) -> torch.Tensor:
 
 # the serving path runs K1-K3 (K4 is the training loss's backward): K3 as
 # the two feature re-warps through its grid entry and the unwarp through
-# the fused kernel; one shipped main-path run launches them exactly this
-# often
+# the fused kernel; and the DiT's adaLN kernels (a block-step's shared
+# norm and each of its 4 streams' two pre-norms, the final layer's
+# pre-norm; each stream's two gated residuals; 3 DDIM steps); one shipped
+# main-path run launches them exactly this often
 SERVE_LAUNCHES = {"attention": 42, "conv3x3": 261, "gather_bilinear": 2,
-                  "unwarp": 1, "gather_bilinear_grad": 0, "gather2d": 0}
+                  "unwarp": 1, "gather_bilinear_grad": 0, "gather2d": 0,
+                  "ln_modulate": 30, "gate_residual": 24}
 
 
 def _kernel_fns():
     """Each kernel's wrapper, K3 by its two entries (the pixel planes, the
     [-1, 1] grid) into one kernel body."""
+    from dvd_tpu_torch.ops.kernels.adaln import gate_residual, ln_modulate
     from dvd_tpu_torch.ops.kernels.attention import attention
     from dvd_tpu_torch.ops.kernels.conv3x3 import conv3x3
     from dvd_tpu_torch.ops.kernels.gather2d import gather2d
@@ -1283,7 +1375,8 @@ def _kernel_fns():
     return {"attention": attention, "conv3x3": conv3x3,
             "gather_bilinear": (gather_bilinear, gather_bilinear_grid),
             "unwarp": unwarp, "gather_bilinear_grad": gather_bilinear_grad,
-            "gather2d": gather2d}
+            "gather2d": gather2d, "ln_modulate": ln_modulate,
+            "gate_residual": gate_residual}
 
 
 # the kernels with two routes: bf16 through wgmma, f32 through the split
@@ -3756,7 +3849,7 @@ def phase_dist2(state):
         raise AssertionError(f"dist2 failed: {failed}")
 
 
-PHASES = (phase_env, phase_kernels, phase_int8, phase_slice32,
+PHASES = (phase_env, phase_kernels, phase_int8, phase_adaln, phase_slice32,
           phase_slice_int8, phase_flags32, phase_alt32, phase_shipped,
           phase_shipped_int8, phase_shipped32, phase_flags, phase_alt,
           phase_train32, phase_flags_train32, phase_alt_train32, phase_train,

@@ -31,6 +31,13 @@ DiT-MoE's sparse MoE layer (``models/moe.py``), fed the tokens of all the
 block's streams in one call.  Served only: int8, training and tensor
 parallelism refuse it.
 
+adaLN-Zero's elementwise passes around each sublayer (the pre-norm
+``modulate(layer_norm(x), shift, scale)``, the gated residual ``x + gate
+* y``; the unmodulated norms; the final layer's pre-norm) go through
+``ops/kernels/adaln.py``: one kernel launch each on a card (under
+autograd, a backward through the plain expressions), their plain twins
+(the same expressions) on the CPU.
+
 Spans (``utils/trace.py``): ``dvd.dit.blocks`` around the blocks that run
 (attributes ``blocks``, ``streams``, ``tokens``) and, in 'para',
 ``dvd.dit.decoder`` around the SATRN decoder and ``final_layer2``
@@ -67,8 +74,8 @@ from dvd_tpu_torch.models.moe import MoE, MoESpec
 from dvd_tpu_torch.models.layers import (CrossAttention, Mlp, PatchEmbed,
                                          SelfAttention, TimestepEmbedder,
                                          compute_dtype, conv3x3_folded,
-                                         get_2d_sincos_pos_embed, layer_norm,
-                                         modulate)
+                                         get_2d_sincos_pos_embed)
+from dvd_tpu_torch.ops.kernels.adaln import gate_residual, ln_modulate
 from dvd_tpu_torch.ops.resize import resize_bilinear
 from dvd_tpu_torch.utils import trace
 from dvd_tpu_torch.utils.dtypes import at_least_f32
@@ -165,24 +172,26 @@ class DiTBlock(nn.Module):
             ada.chunk(6, dim=-1)
 
         def attend(xi):
-            return xi + gate_msa[:, None] * self.attn(
-                modulate(layer_norm(xi), shift_msa, scale_msa))
+            return gate_residual(xi, gate_msa, self.attn(
+                ln_modulate(xi, shift_msa, scale_msa)))
 
         def backbone(xi):
             xi = attend(xi)
-            return xi + gate_mlp[:, None] * self.mlp(
-                modulate(layer_norm(xi), shift_mlp, scale_mlp))
+            return gate_residual(xi, gate_mlp, self.mlp(
+                ln_modulate(xi, shift_mlp, scale_mlp)))
 
         def routed(xs):
-            """The MoE half of every stream, their tokens in one call."""
-            h = torch.cat([modulate(layer_norm(xi), shift_mlp, scale_mlp)
-                           for xi in xs])
+            """The MoE half of every stream, their tokens in one call: each
+            stream's pre-norm written into its rows of one buffer."""
+            h = xs[0].new_empty((len(xs) * xs[0].shape[0],) + xs[0].shape[1:])
+            for xi, hi in zip(xs, h.chunk(len(xs))):
+                ln_modulate(xi, shift_mlp, scale_mlp, out=hi)
             y = self.moe(h.reshape(-1, h.shape[-1])).view(h.shape)
-            return tuple(xi + gate_mlp[:, None] * yi
+            return tuple(gate_residual(xi, gate_mlp, yi)
                          for xi, yi in zip(xs, y.chunk(len(xs))))
 
         if self.mode == "para":
-            xq = layer_norm(x)
+            xq = ln_modulate(x)
             branches = (x + self.cross_attn(xq, s, s)
                         for s in (cond, msk6, msk_line, r) if s is not None)
         else:
@@ -195,10 +204,10 @@ class DiTBlock(nn.Module):
     def _cross(self, x, cond, msk6, msk_line):
         """'seq' and 'one''s cross-attention, in turn."""
         if self.mode == "seq":
-            x = x + self.cross_obs_attn(layer_norm(x), msk6, msk6)
-            x = x + self.cross_attn(layer_norm(x), cond, cond)
-            return x + self.cross_attn_act(layer_norm(x), msk_line, msk_line)
-        return x + self.cross_attn(layer_norm(x), cond, cond)
+            x = x + self.cross_obs_attn(ln_modulate(x), msk6, msk6)
+            x = x + self.cross_attn(ln_modulate(x), cond, cond)
+            return x + self.cross_attn_act(ln_modulate(x), msk_line, msk_line)
+        return x + self.cross_attn(ln_modulate(x), cond, cond)
 
 
 class FinalLayer(nn.Module):
@@ -218,7 +227,7 @@ class FinalLayer(nn.Module):
         if self.n_streams > 1:
             t_emb = t_emb.repeat(1, self.n_streams)
         shift, scale = self.adaLN_modulation_1(F.silu(t_emb)).chunk(2, dim=-1)
-        return self.linear(modulate(layer_norm(x), shift, scale))
+        return self.linear(ln_modulate(x, shift, scale))
 
 
 def unpatchify(x: torch.Tensor, patch: int, channels: int) -> torch.Tensor:

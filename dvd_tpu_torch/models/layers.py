@@ -17,6 +17,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from dvd_tpu_torch.ops.kernels.adaln import layer_norm, modulate  # noqa: F401
 from dvd_tpu_torch.ops.kernels.attention import attention
 from dvd_tpu_torch.ops.kernels.conv3x3 import (conv3x3, conv3x3_trainable,
                                                k_major_weights,
@@ -25,17 +26,6 @@ from dvd_tpu_torch.ops.quant import qlinear, quantize_rows
 from dvd_tpu_torch.parallel import comm
 from dvd_tpu_torch.utils.dtypes import at_least_f32
 from dvd_tpu_torch.utils.graphs import hold
-
-
-def modulate(x: torch.Tensor, shift: torch.Tensor,
-             scale: torch.Tensor) -> torch.Tensor:
-    """adaLN modulation ``x * (1 + scale) + shift`` with (N, D) conditioners."""
-    return x * (1.0 + scale[:, None, :]) + shift[:, None, :]
-
-
-def layer_norm(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """LayerNorm without affine, statistics in f32, result in x's dtype."""
-    return F.layer_norm(at_least_f32(x), (x.shape[-1],), eps=eps).to(x.dtype)
 
 
 def scaled_dot_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

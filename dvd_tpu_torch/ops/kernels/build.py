@@ -34,7 +34,8 @@ PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("attention_f32x6.cu", "attention_wgmma.cu", "conv3x3_f32x6.cu",
-           "conv3x3_wgmma.cu", "grid_sample.cu", "unwarp.cu", "gather_probe.cu")
+           "conv3x3_wgmma.cu", "grid_sample.cu", "unwarp.cu", "gather_probe.cu",
+           "adaln.cu")
 HEADERS = ("common.cuh", "hopper.cuh", "attention.cuh", "conv3x3.cuh",
            "bilinear.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -75,6 +76,12 @@ SIGNATURES = {
     "dvd_unwarp": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I,
                    _P],
     "dvd_gather2d": [_P, _P, _P, _P, _I, _I, _L, _P],
+    # x, shift, scale, out, rows, tokens, D, shift and scale row strides,
+    # eps, dtype code, stream
+    "dvd_ln_modulate": [_P, _P, _P, _P, _L, _I, _I, _L, _L, _F, _I, _P],
+    # x, gate, y, out, N, tokens, D, gate row stride, dtype code, stream
+    "dvd_gate_residual": [_P, _P, _P, _P, _I, _I, _I, _L, _I, _P],
+    "dvd_last_error": [],
 }
 
 
